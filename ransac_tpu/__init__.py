@@ -1,14 +1,13 @@
-"""ransac_tpu — a TPU-native geometric-vision / localization framework.
+"""ransac_tpu — a JAX geometric-vision / localization framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 repo ``Mendel0408/Code-Reproduction-RANSAC`` (historical-photo camera
 localization via candidate-camera search + homography-RANSAC scoring +
 PnP-RANSAC pose estimation + DEM ray-casting), generalized into a batched,
 massively-parallel SLAM/SfM engine:
 
 - ``ransac_tpu.ops``       pure-JAX geometry kernels (SO(3), projection,
-                           homography, P3P/EPnP, epipolar, geodesy, LM) and
-                           Pallas TPU kernels for the hot inlier-scoring path.
+                           homography, P3P/EPnP, epipolar, geodesy, LM).
 - ``ransac_tpu.models``    estimation-model plugins (homography / PnP /
                            essential) + the generic fixed-shape RANSAC engine
                            and camera models/calibration.
@@ -19,7 +18,7 @@ massively-parallel SLAM/SfM engine:
                            complement and pose-graph optimization.
 - ``ransac_tpu.parallel``  device-mesh sharding (pjit/shard_map) for
                            hypothesis-/candidate-/observation-parallelism and
-                           distributed BA over ICI collectives.
+                           distributed BA over device collectives.
 - ``ransac_tpu.io``        host-side ingest (CSV feature/camera tables, DEM
                            rasters) and export (CSV, GeoJSON, ESRI shapefile).
 - ``ransac_tpu.utils``     config, logging, profiling, checkpointing, PRNG.
@@ -50,8 +49,7 @@ def __getattr__(name):
         from ransac_tpu.io import tables as _m
 
         return getattr(_m, name)
-    if name in ("ransac_homography", "ransac_pnp", "ransac_essential",
-                "ransac_homography_sweep", "ransac_pnp_sweep"):
+    if name in ("ransac_homography", "ransac_pnp", "ransac_essential"):
         from ransac_tpu.models import ransac as _m
 
         return getattr(_m, name)

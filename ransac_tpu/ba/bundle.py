@@ -4,7 +4,7 @@ The reference's only refinement is single-pose ``cv2.solvePnPRefineLM``
 (``/root/reference/main_v1.py:508``); this module generalizes it to joint
 multi-camera/multi-point LM (BASELINE.json configs[3]): reprojection
 residuals over an observation tensor, per-block normal equations built
-with one-hot MXU contractions (no sparse matrices, no scatters — see
+with one-hot matmul contractions (no sparse matrices, no scatters — see
 ``_solve_schur``), the camera system reduced via the Schur complement and
 solved by pivot-free Gauss-Jordan, and a damping schedule carried through
 ``lax.while_loop``.
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from ransac_tpu.ops import projection as proj
+from ransac_tpu.ops.precision import einsum, mm
 from ransac_tpu.ops.rotation import exp_so3
 from ransac_tpu.utils.config import BundleAdjustConfig
 from ransac_tpu.ops import linalg
@@ -100,33 +101,32 @@ def _blocks(p: BAProblem, cameras, points, huber_scale: float):
 def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool):
     """One damped GN step via dense Schur reduction of the camera system.
 
-    TPU-first data movement (measured on v5e, O=22.4k, C=32, P=2000):
+    Data movement chosen for the accelerator this was first built for,
+    where scatter-adds and batched LU ran serially:
 
     - ALL per-block accumulations are one-hot MATMULS, not
-      ``segment_sum``: XLA lowers scatter-adds to a serialized loop on
-      TPU (4.1 ms for the four U/V/gc/gp scatters), while the same
-      reductions as [C,O]/[P,O] one-hot contractions ride the MXU
-      (whole solve: 6.2 -> 4.6 ms; full LM iteration 5.6 -> 2.9 ms).
-      A [P,D]-slot gather variant (one obs slot per (point, cam)) was
-      measured SLOWER (4.4 ms/iteration): its tiny batched matmuls and
-      64k small-row gathers lower worse than two big MXU contractions.
+      ``segment_sum``: [C,O]/[P,O] one-hot contractions instead of the
+      four U/V/gc/gp scatter-adds.  A [P,D]-slot gather variant (one obs
+      slot per (point, cam)) measured slower there.
     - The reduced camera system solves by pivot-free Gauss-Jordan
-      (damped SPD); ``jnp.linalg.solve``'s LU is serial on TPU (1.8 ms
-      at N=192 vs ~0.2).
+      (damped SPD) instead of ``jnp.linalg.solve``'s LU.
+
+    Whether scatter-adds and LU win on the GPU is not measured yet
+    (ROADMAP speed queue item 4).
     """
     O = r.shape[0]
     onehot_c = jax.nn.one_hot(p.obs_cam, n_cam, dtype=r.dtype)  # [O,C]
     onehot_p = jax.nn.one_hot(p.obs_pt, n_pt, dtype=r.dtype)    # [O,P]
 
-    # Block accumulations (MXU one-hot reductions).
-    U = jnp.einsum("oc,oij->cij", onehot_c,
-                   jnp.einsum("oai,oaj->oij", Jc, Jc))          # [C,6,6]
-    V = jnp.einsum("op,oij->pij", onehot_p,
-                   jnp.einsum("oai,oaj->oij", Jp, Jp))          # [P,3,3]
-    gc = -jnp.einsum("oc,oi->ci", onehot_c,
-                     jnp.einsum("oai,oa->oi", Jc, r))           # [C,6]
-    gp = -jnp.einsum("op,oi->pi", onehot_p,
-                     jnp.einsum("oai,oa->oi", Jp, r))           # [P,3]
+    # Block accumulations (one-hot matmul reductions).
+    U = einsum("oc,oij->cij", onehot_c,
+                   einsum("oai,oaj->oij", Jc, Jc))          # [C,6,6]
+    V = einsum("op,oij->pij", onehot_p,
+                   einsum("oai,oaj->oij", Jp, Jp))          # [P,3,3]
+    gc = -einsum("oc,oi->ci", onehot_c,
+                     einsum("oai,oa->oi", Jc, r))           # [C,6]
+    gp = -einsum("op,oi->pi", onehot_p,
+                     einsum("oai,oa->oi", Jp, r))           # [P,3]
 
     # Damping (Marquardt diagonal scaling): A + lam * diag_embed(diag(A)).
     dU = jnp.maximum(jnp.diagonal(U, axis1=-2, axis2=-1), 1e-6)
@@ -135,17 +135,17 @@ def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool):
     Vd = V + lam * dV[..., None] * jnp.eye(3, dtype=r.dtype)
     Vinv = inv3x3(Vd, eps=1e-9)
 
-    W = jnp.einsum("oai,oaj->oij", Jc, Jp)                      # [O,6,3]
-    Y = W @ Vinv[p.obs_pt]                                      # [O,6,3]
+    W = einsum("oai,oaj->oij", Jc, Jp)                      # [O,6,3]
+    Y = mm(W, Vinv[p.obs_pt])                                      # [O,6,3]
 
     # Dense cross term: B_y[c,p] = sum_{o: cam=c, pt=p} Y_o, etc.
-    By = jnp.einsum("oc,op,oij->cpij", onehot_c, onehot_p, Y)
-    Bw = jnp.einsum("oc,op,oij->cpij", onehot_c, onehot_p, W)
-    S_cross = jnp.einsum("cpij,dpkj->cidk", By, Bw)             # [C,6,C,6]
+    By = einsum("oc,op,oij->cpij", onehot_c, onehot_p, Y)
+    Bw = einsum("oc,op,oij->cpij", onehot_c, onehot_p, W)
+    S_cross = einsum("cpij,dpkj->cidk", By, Bw)             # [C,6,C,6]
     S = -S_cross
     S = S.at[jnp.arange(n_cam), :, jnp.arange(n_cam), :].add(Ud)
 
-    rhs_cross = jnp.einsum("cpij,pj->ci", By, gp)
+    rhs_cross = einsum("cpij,pj->ci", By, gp)
     b = gc - rhs_cross                                          # [C,6]
 
     if fix_first:
@@ -161,9 +161,9 @@ def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool):
     dc = linalg.solve_spd_gj(Sd, b.reshape(-1)).reshape(n_cam, 6)
 
     # Back-substitute points: dp = Vinv (gp - W^T dc) aggregated per point.
-    Wt_dc = jnp.einsum("op,oj->pj", onehot_p,
-                       jnp.einsum("oij,oi->oj", W, dc[p.obs_cam]))  # [P,3]
-    dp = jnp.einsum("pij,pj->pi", Vinv, gp - Wt_dc)
+    Wt_dc = einsum("op,oj->pj", onehot_p,
+                       einsum("oij,oi->oj", W, dc[p.obs_cam]))  # [P,3]
+    dp = einsum("pij,pj->pi", Vinv, gp - Wt_dc)
     return dc, dp
 
 

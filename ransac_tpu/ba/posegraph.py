@@ -20,6 +20,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ransac_tpu.ops.precision import einsum, mm
 from ransac_tpu.ops.rotation import exp_so3, log_so3
 
 
@@ -36,15 +37,15 @@ def compose(a6: jnp.ndarray, b6: jnp.ndarray) -> jnp.ndarray:
     t_c = R_a t_b + t_a."""
     Ra = exp_so3(a6[..., :3])
     Rb = exp_so3(b6[..., :3])
-    Rc = Ra @ Rb
-    tc = jnp.einsum("...ij,...j->...i", Ra, b6[..., 3:6]) + a6[..., 3:6]
+    Rc = mm(Ra, Rb)
+    tc = einsum("...ij,...j->...i", Ra, b6[..., 3:6]) + a6[..., 3:6]
     return jnp.concatenate([log_so3(Rc), tc], axis=-1)
 
 
 def invert(a6: jnp.ndarray) -> jnp.ndarray:
     Ra = exp_so3(a6[..., :3])
     Rinv = jnp.swapaxes(Ra, -1, -2)
-    tinv = -jnp.einsum("...ij,...j->...i", Rinv, a6[..., 3:6])
+    tinv = -einsum("...ij,...j->...i", Rinv, a6[..., 3:6])
     return jnp.concatenate([log_so3(Rinv), tinv], axis=-1)
 
 
@@ -92,8 +93,8 @@ def compose_sim3(a7: jnp.ndarray, b7: jnp.ndarray) -> jnp.ndarray:
     Ra = exp_so3(a7[..., :3])
     Rb = exp_so3(b7[..., :3])
     sa = jnp.exp(a7[..., 6:7])
-    Rc = Ra @ Rb
-    tc = sa * jnp.einsum("...ij,...j->...i", Ra, b7[..., 3:6]) \
+    Rc = mm(Ra, Rb)
+    tc = sa * einsum("...ij,...j->...i", Ra, b7[..., 3:6]) \
         + a7[..., 3:6]
     return jnp.concatenate(
         [log_so3(Rc), tc, a7[..., 6:7] + b7[..., 6:7]], axis=-1)
@@ -103,7 +104,7 @@ def invert_sim3(a7: jnp.ndarray) -> jnp.ndarray:
     Ra = exp_so3(a7[..., :3])
     Rinv = jnp.swapaxes(Ra, -1, -2)
     sinv = jnp.exp(-a7[..., 6:7])
-    tinv = -sinv * jnp.einsum("...ij,...j->...i", Rinv, a7[..., 3:6])
+    tinv = -sinv * einsum("...ij,...j->...i", Rinv, a7[..., 3:6])
     return jnp.concatenate([log_so3(Rinv), tinv, -a7[..., 6:7]], axis=-1)
 
 

@@ -7,17 +7,17 @@ This module solves the same damped normal equations at 512+ cameras /
 
 - **Slots-LAST layout** ``[..., D, ..., P]``: every observation lives in
   a slot of its point's column (padded with zero weight), and the POINT
-  axis is the minormost axis of every large tensor.  XLA:TPU tiles the
-  two minormost dims of an f32 array to (8, 128); the round-2 point-
-  MAJOR layout ([P, D, 2, 6] Jacobians etc.) padded 2 -> 8 and 6 -> 128,
-  inflating ~300 MB of per-slot blocks to ~16 GB and OOMing the
-  advertised 512-cam / 200k-pt / 2M-obs size at compile.  With P minor
-  the pad is at most 6 -> 8 on the second-minor dim (<= 1.33x), and the
-  tiny algebra dims (2/3/6) are unrolled leading axes.
+  axis is the minormost axis of every large tensor.  The layout was
+  chosen for an accelerator that tiles the two minormost dims of an f32
+  array to (8, 128), where a point-MAJOR layout ([P, D, 2, 6] Jacobians
+  etc.) padded 2 -> 8 and 6 -> 128 and ran out of memory at the
+  512-cam / 200k-pt / 2M-obs size.  With P minor the tiny algebra dims
+  (2/3/6) are unrolled leading axes, which is also a coalesced layout
+  on the GPU.
 - ALL point-side reductions (V_p, g_p, W^T dc aggregation, point
   back-substitution) are dense sums over the D axis — no scatters, no
-  segment_sum (XLA serializes scatter-adds on TPU).
-- **Camera-side reductions ride the MXU**: C is small (hundreds), so
+  segment_sum (scatter-adds ran serially where this was first built).
+- **Camera-side reductions are matmuls**: C is small (hundreds), so
   per-slot -> per-camera sums are tiled one-hot [C, N] x [N, k]
   contractions over the flattened slot axis N = D*P, and per-slot camera
   gathers are one-hot matmuls against the [C, k] table.
@@ -25,7 +25,7 @@ This module solves the same damped normal equations at 512+ cameras /
   applies S = Ud - W V^-1 W^T matrix-free in the slot layout (two dense
   W matvecs + one camera gather + one camera reduce), preconditioned by
   the inverted 6x6 diagonal blocks (closed-form via 3x3 Schur blocks —
-  batched LAPACK inverts serialize on TPU).
+  no batched LAPACK inverts).
 
 Reference lineage: generalizes ``cv2.solvePnPRefineLM``
 (/root/reference/main_v1.py:508) to joint multi-camera LM, as
@@ -45,16 +45,16 @@ import jax.numpy as jnp
 import numpy as np
 
 from ransac_tpu.ba.bundle import BAProblem, BAResult
+from ransac_tpu.ops.precision import HIGHEST, einsum, mm
 from ransac_tpu.utils.config import BundleAdjustConfig
 
 
 class BASlotProblem(NamedTuple):
     """Slots-last observation layout (see module docstring).
 
-    Round-3 layout change: the slot arrays are indexed ``[D, P]`` /
-    ``[2, D, P]`` (P minormost), NOT ``[P, D]`` as in round 2 — the
-    point-major layout OOMed at the advertised problem size from TPU
-    minor-dim tile padding.
+    The slot arrays are indexed ``[D, P]`` / ``[2, D, P]`` (P
+    minormost), NOT ``[P, D]``: the point-major layout ran out of memory
+    at the advertised problem size from minor-dim tile padding.
     """
     cameras: jnp.ndarray    # [C,6] (rvec, tvec)
     points: jnp.ndarray     # [P,3]
@@ -133,7 +133,7 @@ def _reduce_G(C: int) -> int:
 def _gather_cams_T(table: jnp.ndarray, ids: jnp.ndarray, C: int):
     """``[k, N]`` table rows for flat int ids ``[N]``.
 
-    Tiled hi/lo group-folded one-hot MXU contractions (round 4): ids
+    Tiled hi/lo group-folded one-hot matmul contractions (round 4): ids
     split into ``hi = id // lo_n`` (G groups folded into the contraction
     LHS rows) and ``lo = id % lo_n`` (one-hot built directly in
     [lo_n, chunk] orientation so the big slot axis is the output MINOR
@@ -159,13 +159,14 @@ def _gather_cams_T(table: jnp.ndarray, ids: jnp.ndarray, C: int):
         idl = ids_c % lo_n
         oh = _oh_lo(idl, lo_n, dt)                       # [lo_n, chunk]
         allg = jax.lax.dot_general(
-            t2, oh, (((1,), (0,)), ((), ())))            # [(g,k), chunk]
+            t2, oh, (((1,), (0,)), ((), ())),
+            precision=HIGHEST)                           # [(g,k), chunk]
         if G == 1:
             return allg
         allg = allg.reshape(G, k, -1)
         sel = (jnp.arange(G, dtype=jnp.int32)[:, None] == idh[None, :]
                ).astype(dt)                              # [G, chunk]
-        return jnp.einsum("gkc,gc->kc", allg, sel)
+        return einsum("gkc,gc->kc", allg, sel)
 
     if n <= _CHUNK:
         return one(ids)
@@ -181,11 +182,12 @@ def _reduce_to_cams_T(values: jnp.ndarray, ids: jnp.ndarray, C: int):
 
     Same hi/lo group folding as ``_gather_cams_T`` for small k (<= 8):
     values are masked into G hi-group copies ([G*k, chunk]) and ONE
-    [G*k, chunk] @ [chunk, lo_n] contraction reduces them — 7.5x faster
-    than the round-3 [chunk, C]-one-hot form at k=6 / C=512 / N=2M
-    (0.37 ms vs 2.8).  For larger k (the 36-entry JtJ blocks) the fold
-    multiplies LHS rows past the MXU tile and measures slower, so the
-    round-3 orientation is kept with the direct [lo, chunk] one-hot."""
+    [G*k, chunk] @ [chunk, lo_n] contraction reduces them; it measured
+    faster than the [chunk, C]-one-hot form at k=6 / C=512 / N=2M on the
+    accelerator this was first built for.  For larger k (the 36-entry
+    JtJ blocks) the fold multiplies LHS rows past the matrix unit's tile
+    and measured slower there, so the direct [lo, chunk] one-hot is kept.
+    Neither is measured on the GPU yet."""
     k = values.shape[0]
     n = ids.shape[0]
     dt = values.dtype
@@ -199,12 +201,14 @@ def _reduce_to_cams_T(values: jnp.ndarray, ids: jnp.ndarray, C: int):
         oh = _oh_lo(idl, lo_n, dt)                       # [lo_n, chunk]
         if G == 1:
             return jax.lax.dot_general(
-                v_c, oh, (((1,), (1,)), ((), ())))       # [k, lo_n]
+                v_c, oh, (((1,), (1,)), ((), ())),
+                precision=HIGHEST)                       # [k, lo_n]
         sel = (jnp.arange(G, dtype=jnp.int32)[:, None] == idh[None, :]
                ).astype(dt)                              # [G, chunk]
         vm = (v_c[:, None, :] * sel[None, :, :]).reshape(k * G, -1)
         return jax.lax.dot_general(
-            vm, oh, (((1,), (1,)), ((), ())))            # [k*G, lo_n]
+            vm, oh, (((1,), (1,)), ((), ())),
+            precision=HIGHEST)                           # [k*G, lo_n]
 
     if n <= _CHUNK:
         out = one((ids, values))
@@ -240,11 +244,11 @@ def _residual_lanes(cam6, X, uv, K):
     ``uv`` [2, ...] -> r [2, ...].
 
     Why not exp_so3 + project_points: under vmap over millions of slots
-    their [3,3] matmuls become batched tiny dot_generals, which TPU
-    executes quasi-serially (measured 95x slowdown per observation vs
-    the 32-cam problem) and which blow AOT compile time past an hour at
-    2M observations.  Elementwise component formulas keep both the
-    primal and the jacfwd/linearize tangents pure VPU code.  Formulas
+    their [3,3] matmuls become batched tiny dot_generals, which executed
+    quasi-serially on the accelerator this was first built for and blew
+    compile time past an hour at 2M observations.  Elementwise component
+    formulas keep both the primal and the jacfwd/linearize tangents pure
+    elementwise code that XLA fuses.  Formulas
     mirror ops.rotation.exp_so3 (same smooth-at-zero guards, using
     K^2 = w w^T - |w|^2 I) and ops.projection.project_points (guarded
     divide, no distortion).
@@ -348,19 +352,18 @@ def _inv3x3_lanes(A, lam_diag=None, eps: float = 0.0):
 
 def _inv_spd_6x6(A: jnp.ndarray, eps: float = 1e-9) -> jnp.ndarray:
     """Batched closed-form SPD 6x6 inverse via 3x3 block Schur on the
-    SMALL [C,6,6] camera system (batched LAPACK inverts serialize per
-    matrix on TPU)."""
+    SMALL [C,6,6] camera system (no batched LAPACK inverts)."""
     from ransac_tpu.ops.linalg import inv3x3
 
     P = A[..., :3, :3]
     Q = A[..., :3, 3:]
     S = A[..., 3:, 3:]
     Pinv = inv3x3(P, eps=eps)
-    T = S - jnp.swapaxes(Q, -1, -2) @ Pinv @ Q
+    T = S - mm(mm(jnp.swapaxes(Q, -1, -2), Pinv), Q)
     Tinv = inv3x3(T, eps=eps)
-    PiQ = Pinv @ Q
-    top_left = Pinv + PiQ @ Tinv @ jnp.swapaxes(PiQ, -1, -2)
-    top_right = -PiQ @ Tinv
+    PiQ = mm(Pinv, Q)
+    top_left = Pinv + mm(mm(PiQ, Tinv), jnp.swapaxes(PiQ, -1, -2))
+    top_right = -mm(PiQ, Tinv)
     bottom_left = jnp.swapaxes(top_right, -1, -2)
     return jnp.concatenate([
         jnp.concatenate([top_left, top_right], axis=-1),
@@ -400,7 +403,8 @@ def _assemble_cam_blocks(Jc, r, ids, C: int, cam_psum):
         vm = jnp.stack(rows)                               # [27, chunk]
         oh = _oh_lo(ids_c, C, dt)                          # [C, chunk]
         return jax.lax.dot_general(
-            vm, oh, (((1,), (1,)), ((), ())))              # [27, C]
+            vm, oh, (((1,), (1,)), ((), ())),
+            precision=HIGHEST)                             # [27, C]
 
     out = jnp.sum(jax.lax.map(one, (idp, rch, *Jch)), axis=0)
     out = cam_psum(out.T)                                  # [C, 27]
@@ -440,8 +444,8 @@ def _cg_step_operator(W, Vinv, slot_cam, Ud, n_cam, fix_mask, cam_psum):
     """Returns S_apply(x): the damped Schur operator
     (Ud - W V^-1 W^T) x, matrix-free in the slots-last layout.
     ``W`` is the stacked d-major [D, 6, 3, P] cross-block array
-    (explicit small loops, NOT einsum: batched tiny dot_generals execute
-    quasi-serially on TPU).  ``cam_psum`` completes camera-side
+    (explicit small loops, NOT einsum: batched tiny dot_generals executed
+    quasi-serially where this was first built).  ``cam_psum`` completes camera-side
     reductions across point shards (identity on a single device).
 
     Round 4: processed PER SLOT ROW d (``_row_loop``) so no [6, D, P]
@@ -475,7 +479,7 @@ def _cg_step_operator(W, Vinv, slot_cam, Ud, n_cam, fix_mask, cam_psum):
         s = _row_loop(D, slot_cam, W, srow,
                       jnp.zeros((n_cam, 6), x.dtype))
         s = cam_psum(s)
-        out = jnp.einsum("cij,cj->ci", Ud, x) - s
+        out = einsum("cij,cj->ci", Ud, x) - s
         return out * fix_mask[:, None]
 
     return S_apply
@@ -492,7 +496,7 @@ def _pcg(S_apply, b, Minv, n_iters: int, tol: float = 1e-8, x0=None):
     one extra S application, typically saves several)."""
 
     def prec(r):
-        return jnp.einsum("cij,cj->ci", Minv, r)
+        return einsum("cij,cj->ci", Minv, r)
 
     if x0 is None:
         x0 = jnp.zeros_like(b)
@@ -533,8 +537,8 @@ def _schur_cg_step(p: BASlotProblem, r, Jc, Jp, lam, n_cam,
     (r [2,D,P]; Jc/Jp = per-parameter column lists of [2,D,P]).  All
     tiny-dim contractions are explicit Python loops over [D,P]/[P]
     arrays — einsum/dot_general forms with million-sized batch dims of
-    2x6 matrices execute quasi-serially on TPU (measured 95x/obs slower)
-    and blow AOT compile time past an hour.  ``cam_psum`` (default
+    2x6 matrices executed quasi-serially where this was first built and
+    blew compile time past an hour.  ``cam_psum`` (default
     identity) completes every camera-side reduction across point shards
     — the ONLY cross-shard communication the distributed mirror needs
     (parallel.dist_ba)."""

@@ -1,6 +1,6 @@
 """Checkerboard corner detection + grid ordering.
 
-TPU-native replacement for ``cv2.findChessboardCorners`` +
+JAX replacement for ``cv2.findChessboardCorners`` +
 ``cv2.cornerSubPix`` (``/root/reference/testpro.py:270-276``), completing
 the from-images calibration path (models.calibration implements Zhang).
 

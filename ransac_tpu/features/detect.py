@@ -4,8 +4,8 @@ The reference has no feature detector (its correspondences are hand
 annotations in a CSV; its only corner code is the checkerboard finder
 ``cv2.findChessboardCorners``, ``/root/reference/testpro.py:270``).  The
 two-view/SfM configs (BASELINE.json configs[2,3]) need one, so this module
-provides a TPU-shaped Harris pipeline: gradients and structure tensors as
-XLA convolutions (MXU-friendly), fixed-size top-K corner selection instead
+provides a static-shape Harris pipeline: gradients and structure tensors as
+separable banded matmuls, fixed-size top-K corner selection instead
 of data-dependent thresholding, and window-max NMS via reduce_window — all
 static shapes, batchable over keyframes (the ``data`` mesh axis).
 """
@@ -47,10 +47,11 @@ def _sep_conv2(img: jnp.ndarray, row_taps: jnp.ndarray,
                col_taps: jnp.ndarray) -> jnp.ndarray:
     """Separable 'same' correlation as two banded matmuls.
 
-    Single-channel ``lax.conv`` lowers miserably on TPU (~46 ms for a 1 MP
-    Harris pass); expressing each 1-D pass as a dense banded [N,N] matmul
-    puts the work on the MXU instead (measured ~20x on v5e).  ``row_taps``
-    runs down columns (axis 0), ``col_taps`` along rows (axis 1).
+    Single-channel ``lax.conv`` lowered poorly on the accelerator this
+    was first built for; each 1-D pass is a dense banded [N,N] matmul
+    instead.  Whether a plain convolution is faster on the GPU is not
+    measured yet.  ``row_taps`` runs down columns (axis 0), ``col_taps``
+    along rows (axis 1).
     """
     h, w = img.shape
     out = _band(h, row_taps) @ img
@@ -108,18 +109,17 @@ def detect_harris(img: jnp.ndarray, max_keypoints: int = 512,
     no data-dependent corner counts under jit.
 
     ``approx_topk`` selects the corners with ``jax.lax.approx_max_k``
-    (TPU-accelerated; measured 3x faster than exact ``top_k`` over the
-    1M-element response at 1024x1024 — exact top_k was the single
-    largest cost of the detect stage).  Recall target 0.95 over the TAIL
+    (hardware-accelerated only on some backends; elsewhere XLA runs an
+    exact top-k, so the results match ``approx_topk=False``).  Recall
+    target 0.95 over the TAIL
     of the score distribution only: the strongest corners are always
     kept, a few of the weakest slots may differ from exact — acceptable
     for a detection front end; pass ``approx_topk=False`` for exact
     selection."""
     resp = harris_response(img, k)
     H, W = resp.shape
-    # NMS: keep strict window maxima.  (A separable two-pass max filter
-    # measured SLOWER than the 2-D reduce_window on v5e — XLA already
-    # decomposes it; keep the direct form.)
+    # NMS: keep strict window maxima (the direct 2-D reduce_window; XLA
+    # decomposes it itself).
     win = 2 * nms_radius + 1
     local_max = jax.lax.reduce_window(
         resp, -jnp.inf, jax.lax.max, (win, win), (1, 1), "SAME")

@@ -1,7 +1,7 @@
 """Patch descriptors + mutual-nearest-neighbor matching.
 
-Descriptor distance matrices are one big matmul — exactly what the MXU is
-for (SURVEY.md §2.5 "batched feature detect/match").  Fixed shapes
+Descriptor distance matrices are one big matmul (SURVEY.md §2.5 "batched
+feature detect/match").  Fixed shapes
 throughout: K x K score matrix, mutual-NN + ratio test as masks.
 """
 
@@ -12,6 +12,9 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from ransac_tpu.ops.precision import einsum
+
 
 
 class Matches(NamedTuple):
@@ -30,9 +33,8 @@ def patch_descriptors(img: jnp.ndarray, xy: jnp.ndarray,
     Each keypoint fetches ONE (patch+1)x(patch+1) window with
     ``dynamic_slice`` (one strided gather) and interpolates all patch^2
     samples from it — the patch offsets are integers, so every sample
-    shares the keypoint's fractional weights.  The previous form (4
-    scalar gathers per sample, 4*patch^2 per keypoint) measured 55 ms
-    for 16x1024 keypoints on v5e; this one ~1 ms.  Windows clamp to the
+    shares the keypoint's fractional weights, instead of 4 scalar
+    gathers per sample (4*patch^2 per keypoint).  Windows clamp to the
     image interior (keypoints closer than patch/2+1 to the border sample
     a shifted window; Harris detection already excludes a wider margin).
     """
@@ -40,13 +42,13 @@ def patch_descriptors(img: jnp.ndarray, xy: jnp.ndarray,
     r = patch // 2
     p1 = patch + 1
 
-    # One (p1 x p1) window per keypoint, fetched TPU-shaped: whole image
-    # ROWS by index (full-vreg-row gathers, cheap) + a batched one-hot
-    # matmul to select the p1 columns (MXU).  Per-sample scalar gathers
-    # (4 per bilinear tap) measured 55 ms for 16x1024 keypoints on v5e;
-    # a vmapped dynamic_slice 33 ms; this form ~1 ms.  Windows clamp to
-    # the image interior (border keypoints sample a shifted window;
-    # Harris detection already excludes a wider margin).
+    # One (p1 x p1) window per keypoint: whole image ROWS by index + a
+    # batched one-hot matmul to select the p1 columns.  The layout was
+    # chosen where row gathers were cheap and scalar gathers serial;
+    # per-sample scalar gathers and a vmapped dynamic_slice both
+    # measured far slower there.  Windows clamp to the image interior
+    # (border keypoints sample a shifted window; Harris detection
+    # already excludes a wider margin).
     x0 = jnp.clip(jnp.floor(xy[:, 0]).astype(jnp.int32) - r, 0, W - p1)
     y0 = jnp.clip(jnp.floor(xy[:, 1]).astype(jnp.int32) - r, 0, H - p1)
     fx = jnp.clip(xy[:, 0] - jnp.floor(xy[:, 0]), 0.0, 1.0)[:, None, None]
@@ -56,7 +58,7 @@ def patch_descriptors(img: jnp.ndarray, xy: jnp.ndarray,
     strips = strips.reshape(-1, p1, W)                    # [K, p1, W]
     col_oh = (x0[:, None, None] + jnp.arange(p1)[None, None, :]
               == jnp.arange(W)[None, :, None]).astype(img.dtype)  # [K,W,p1]
-    win = jnp.einsum("kjw,kwc->kjc", strips, col_oh)      # [K, p1, p1]
+    win = einsum("kjw,kwc->kjc", strips, col_oh)      # [K, p1, p1]
     v = (win[:, :-1, :-1] * (1 - fy) * (1 - fx)
          + win[:, 1:, :-1] * fy * (1 - fx)
          + win[:, :-1, 1:] * (1 - fy) * fx
@@ -74,7 +76,7 @@ def mutual_nn_match(d1: jnp.ndarray, d2: jnp.ndarray,
                     ratio: float = 0.9) -> Matches:
     """Mutual nearest neighbors with Lowe ratio test.
 
-    Similarity = d1 @ d2.T (one MXU matmul).  Returns fixed-size [K1]
+    Similarity = d1 @ d2.T (one matmul).  Returns fixed-size [K1]
     match slots (idx1 = arange) with a valid mask.
     """
     sim = d1 @ d2.T  # [K1,K2], cosine similarity in [-1,1]
@@ -84,8 +86,8 @@ def mutual_nn_match(d1: jnp.ndarray, d2: jnp.ndarray,
     best2 = jnp.argmax(sim, axis=1)                    # [K1]
     best_sim = jnp.max(sim, axis=1)
     # Second best for the ratio test (on distance = 2 - 2*sim).  Masked
-    # via an iota compare, NOT ``.at[...].set``: XLA lowers the scatter
-    # to a serialized per-row update on TPU.
+    # via an iota compare, NOT ``.at[...].set``: a compare fuses into
+    # the max, where a scatter is a separate pass.
     cols = jax.lax.broadcasted_iota(jnp.int32, sim.shape, 1)
     sim_wo_best = jnp.where(cols == best2[:, None], neg, sim)
     second_sim = jnp.max(sim_wo_best, axis=1)

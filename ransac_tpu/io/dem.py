@@ -6,7 +6,7 @@ Replaces the reference's GDAL + scipy ``RegularGridInterpolator`` stack
 - ``DemLonLat``: the raster as shipped — a regular grid in lon/lat from the
   GeoTIFF geotransform (rows northing-down, gt[5] < 0).  Matches the
   reference's interpolator exactly (bilinear over (lat, lon)).
-- ``DemUtm``: the TPU-first form — the same surface resampled ONCE at load
+- ``DemUtm``: the device form — the same surface resampled ONCE at load
   onto a regular, scene-centered UTM grid.  The reference instead calls
   PROJ per 1-meter ray-march step (main_v1.py:642, hot loop #4); after this
   one-time warp the march needs only a bilinear gather, so thousands of
@@ -103,13 +103,13 @@ def bilinear_sample(data: jnp.ndarray, x0, y0, dx, dy,
 def pack_bilinear(data) -> jnp.ndarray:
     """Quad-pack a [H, W] grid for one-gather bilinear sampling.
 
-    TPU gathers move >= one (8, 128) vreg row per index, so 4 scalar
-    gathers per bilinear sample waste 3/4 of the work.  This packs every
-    2x2 neighborhood needed by any (r0, c0) into one 16-byte row of a
-    [4*Hp*Wp, 4] array — 4 parity planes indexed by (r0 & 1, c0 & 1) —
-    and :func:`bilinear_sample_packed` fetches all four corners with ONE
-    row gather (measured 4.3x over 4 scalar gathers on v5e).  Memory cost:
-    4x the grid.
+    Packs every 2x2 neighborhood needed by any (r0, c0) into one 16-byte
+    row of a [4*Hp*Wp, 4] array — 4 parity planes indexed by
+    (r0 & 1, c0 & 1) — so :func:`bilinear_sample_packed` fetches all four
+    corners with ONE row gather instead of four scalar gathers (it was
+    built where each gather moved a whole vector row; on the GPU one
+    16-byte load per sample is not yet compared with four 4-byte loads).
+    Memory cost: 4x the grid.
     """
     d = np.asarray(data, np.float32)
     h, w = d.shape

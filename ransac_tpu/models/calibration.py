@@ -1,6 +1,6 @@
 """Camera calibration: Zhang's method on checkerboard homographies.
 
-TPU-native replacement for ``cv2.calibrateCamera`` /
+JAX replacement for ``cv2.calibrateCamera`` /
 ``findChessboardCorners`` / ``getOptimalNewCameraMatrix`` / ``undistort``
 (``/root/reference/testpro.py:251-287, 952-956``).  Zhang's method is a
 homography stack + closed-form intrinsics + LM — it reuses this framework's

@@ -1,6 +1,6 @@
 """Generic fixed-shape batched RANSAC engine.
 
-The TPU-native replacement for OpenCV's sequential hypothesize-and-verify
+A JAX replacement for OpenCV's sequential hypothesize-and-verify
 loops (``cv2.findHomography(..., cv2.RANSAC, ...)`` at
 ``/root/reference/main_v1.py:312``; ``cv2.solvePnPRansac(5000, 30, 0.99)``
 at ``main_v1.py:497-502``).  Design (SURVEY.md §7.1/§7.2):
@@ -36,6 +36,7 @@ import numpy as np
 
 from ransac_tpu.ops import epipolar, homography, pnp, projection
 from ransac_tpu.ops.lm import refine_homography, refine_pose
+from ransac_tpu.ops.precision import mm
 from ransac_tpu.ops.rotation import exp_so3, log_so3
 from ransac_tpu.utils.config import RansacConfig
 from ransac_tpu.utils.prng import sample_without_replacement
@@ -100,9 +101,24 @@ def ransac_fit(
         lambda m: m.reshape((m.shape[0] * n_sol,) + m.shape[2:]), models)
     valid = valid.reshape(-1)
 
-    r = jax.vmap(lambda m: residual_fn(m, x, y))(flat)  # [H, N]
     thr = cfg.threshold if threshold is None else threshold
-    thr_sq = thr * thr
+    inlier, counts, msac = score_hypotheses(
+        flat, valid, residual_fn, x, y, point_mask, thr,
+        residual_is_squared)
+    best = _select_best(counts, msac, cfg.selection)
+    best_mask = inlier[best]
+    return flat, valid, counts, msac, best, best_mask
+
+
+def score_hypotheses(models, valid, residual_fn, x, y, point_mask,
+                     threshold, residual_is_squared: bool = False):
+    """Score every hypothesis against every point: returns (inlier [H,N]
+    bool, counts [H] (-1 where invalid), msac [H] truncated squared
+    residual sum (inf where invalid)).  Non-finite residuals count as
+    outliers at the truncation value."""
+    point_mask = point_mask.astype(bool)
+    r = jax.vmap(lambda m: residual_fn(m, x, y))(models)  # [H, N]
+    thr_sq = threshold * threshold
     r_sq = r if residual_is_squared else r * r
     r_sq = jnp.where(jnp.isfinite(r_sq), r_sq, jnp.inf)
     inlier = (r_sq <= thr_sq) & point_mask[None, :]
@@ -112,10 +128,7 @@ def ransac_fit(
         jnp.where(point_mask[None, :], jnp.minimum(r_sq, thr_sq), 0.0).sum(-1),
         jnp.inf,
     )
-
-    best = _select_best(counts, msac, cfg.selection)
-    best_mask = inlier[best]
-    return flat, valid, counts, msac, best, best_mask
+    return inlier, counts, msac
 
 
 def _select_best(counts, msac, selection: str):
@@ -127,14 +140,6 @@ def _select_best(counts, msac, selection: str):
         tied_msac = jnp.where(counts == max_count, msac, jnp.inf)
         return jnp.argmin(tied_msac)
     return jnp.argmin(msac)
-
-
-def _as_seed(key_or_seed):
-    """Accept either a raw integer seed or a typed jax.random key."""
-    dt = getattr(key_or_seed, "dtype", None)
-    if dt is not None and jnp.issubdtype(dt, jax.dtypes.prng_key):
-        return jax.random.randint(key_or_seed, (), 0, 2**31 - 1)
-    return key_or_seed
 
 
 # --------------------------------------------------------------------------
@@ -179,137 +184,9 @@ def ransac_homography(
         counts=counts, num_hypotheses=int(valid.shape[0]))
 
 
-def ransac_homography_sweep(
-    src: jnp.ndarray, dst: jnp.ndarray, point_mask: jnp.ndarray,
-    cfg: RansacConfig, key_or_seed, interpret: bool = False,
-) -> RansacResult:
-    """Homography RANSAC through the fully-fused Pallas sweep kernel
-    (ops.pallas.sweep) — the high-throughput path for <=16-point problems.
-
-    The kernel returns per-hypothesis (MSAC, count, packed sample); the
-    winning minimal sample is re-solved exactly here and refit on its
-    inliers, giving the same semantics as ``ransac_homography``.
-
-    Pools larger than 16 points route to the large-N counter-replay
-    sweep (``ransac_homography_sweep_large``).
-    """
-    from ransac_tpu.ops.pallas.sweep import (BLOCK_H, MAX_POINTS,
-                                             homography_ransac_sweep)
-
-    if src.shape[0] > MAX_POINTS:
-        return ransac_homography_sweep_large(
-            src, dst, point_mask, cfg, key_or_seed, interpret=interpret)
-
-    seed = _as_seed(key_or_seed)
-    n_hyp = max(cfg.num_hypotheses, BLOCK_H)
-    n_hyp = -(-n_hyp // BLOCK_H) * BLOCK_H
-    # Block-reduced records: row 0 = per-block min-MSAC, row 1 = per-block
-    # lexicographic (max count, min MSAC).  Masked-point and degenerate
-    # hypotheses are invalidated inside the kernel, so selecting across
-    # blocks with the matching rule is exact.
-    msac_all, counts_all, packed_all = homography_ransac_sweep(
-        seed, src, dst, point_mask, cfg.threshold, n_hyp=n_hyp,
-        interpret=interpret)
-    row = 1 if cfg.selection == "count" else 0
-    msac_all, counts_all, packed_all = (
-        msac_all[row], counts_all[row], packed_all[row])
-    best = _select_best(counts_all, msac_all, cfg.selection)
-    sample_packed = packed_all[best]
-    sample = jnp.stack([
-        sample_packed & 15, (sample_packed >> 4) & 15,
-        (sample_packed >> 8) & 15, (sample_packed >> 12) & 15])
-    H_best, ok = homography.dlt_homography_minimal(src[sample], dst[sample])
-    errs = homography.transfer_errors(H_best, src, dst)
-    thr_sq = cfg.threshold * cfg.threshold
-    best_mask = (errs * errs <= thr_sq) & point_mask.astype(bool)
-    H_ref = H_best
-    if cfg.refit:
-        w = best_mask.astype(src.dtype)
-        H_ref = homography.dlt_homography(src, dst, w)
-        if cfg.refine_iters > 0:
-            H_ref, _ = refine_homography(
-                H_ref, src, dst, w, max_iters=cfg.refine_iters)
-        bad = jnp.logical_not(jnp.all(jnp.isfinite(H_ref)))
-        H_ref = jnp.where(bad, H_best, H_ref)
-    return RansacResult(
-        model=H_ref, raw_model=H_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all, num_hypotheses=int(n_hyp))
-
-
-def ransac_homography_sweep_large(
-    src: jnp.ndarray, dst: jnp.ndarray, point_mask: jnp.ndarray,
-    cfg: RansacConfig, key_or_seed, interpret: bool = False,
-) -> RansacResult:
-    """Homography RANSAC through the large-N fused sweep
-    (ops.pallas.sweep_large) — fused path for pools of up to 1024 points
-    (two-view matching scale).
-
-    The kernel records carry flat hypothesis ids; the winner's minimal
-    sample is re-derived by replaying the counter PRNG, re-solved exactly
-    and refit on its inliers — same semantics as ``ransac_homography``.
-    """
-    from ransac_tpu.ops.pallas.sweep_large import (
-        BLOCK_H, homography_ransac_sweep_large as _sweep,
-        sample_indices_for)
-
-    seed = _as_seed(key_or_seed)
-    n_hyp = max(cfg.num_hypotheses, BLOCK_H)
-    n_hyp = -(-n_hyp // BLOCK_H) * BLOCK_H
-    msac_all, counts_all, flat_all, (seeds, n_valid, order) = _sweep(
-        seed, src, dst, point_mask, cfg.threshold, n_hyp=n_hyp,
-        interpret=interpret)
-    row = 1 if cfg.selection == "count" else 0
-    msac_all, counts_all, flat_all = (
-        msac_all[row], counts_all[row], flat_all[row])
-    best = _select_best(counts_all, msac_all, cfg.selection)
-    # Counter replay: re-derive the winning sample's pool indices from its
-    # flat id, then map pool slots back to input rows.
-    pool = sample_indices_for(flat_all[best][None], seeds, n_valid)[0]
-    sample = order[pool]
-    H_best, ok = homography.dlt_homography_minimal(src[sample], dst[sample])
-    errs = homography.transfer_errors(H_best, src, dst)
-    thr_sq = cfg.threshold * cfg.threshold
-    best_mask = (errs * errs <= thr_sq) & point_mask.astype(bool)
-    H_ref = H_best
-    if cfg.refit:
-        w = best_mask.astype(src.dtype)
-        H_ref = homography.dlt_homography(src, dst, w)
-        if cfg.refine_iters > 0:
-            H_ref, _ = refine_homography(
-                H_ref, src, dst, w, max_iters=cfg.refine_iters)
-        bad = jnp.logical_not(jnp.all(jnp.isfinite(H_ref)))
-        H_ref = jnp.where(bad, H_best, H_ref)
-    return RansacResult(
-        model=H_ref, raw_model=H_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all,
-        # Executed budget from the kernel's actual block count (8
-        # hypotheses per record lane): the kernel rounds n_blocks up to
-        # MIN_WINDOWED_BLOCKS for windowed pools, so n_hyp can understate
-        # it (ADVICE r3).
-        num_hypotheses=int(counts_all.shape[-1]) * 8)
-
-
 # --------------------------------------------------------------------------
 # PnP
 # --------------------------------------------------------------------------
-def _p3p_all_orders(X3, pix3):
-    """Grunert P3P over all 3 cyclic orderings of the sample -> stacked
-    ``(R [12,3,3], t [12,3], valid [12])``.
-
-    Grunert's formulation is order-sensitive (point 0 anchors the b^2
-    normalization), and the fused sweeps' tie-breaks can surface any
-    permutation of a winning triple — an unlucky ordering of a good
-    sample can lose most of its roots to f32 conditioning (seen as a
-    4-vs-11-inlier flip on a 14-point scene).  Solving the 3 rotations
-    and letting the caller's MSAC argmin pick across 12 candidate poses
-    makes the host re-solve permutation-robust."""
-    perms = jnp.array([[0, 1, 2], [1, 2, 0], [2, 0, 1]])
-    R, t, v = jax.vmap(lambda pm: pnp.p3p_grunert(X3[pm], pix3[pm]))(perms)
-    return R.reshape(-1, 3, 3), t.reshape(-1, 3), v.reshape(-1)
-
-
 def _pnp_residual(model, X, pix_n, ay=1.0):
     """model = [12]: flattened R (9) + t (3); residual in fx-normalized
     units: ``err * fx`` is the exact PIXEL reprojection error when the
@@ -320,7 +197,7 @@ def _pnp_residual(model, X, pix_n, ay=1.0):
     get +inf residual (cheirality)."""
     R = model[:9].reshape(3, 3)
     t = model[9:12]
-    Xc = X @ R.T + t
+    Xc = mm(X, R.T) + t
     z = Xc[:, 2]
     good_z = z > 1e-6
     uv = Xc[:, :2] / jnp.where(good_z, z, 1.0)[:, None]
@@ -339,9 +216,7 @@ def _pnp_solve(Xs, xs):
 
 def _epnp_solve(Xs, xs):
     """EPnP (ops.pnp.epnp) as a 6-point minimal solver: 2 beta-case
-    candidates per sample flatten into the hypothesis axis.  Engine-path
-    only (the eigh inside EPnP does not belong in a Pallas sweep; P3P
-    remains the fused hot path)."""
+    candidates per sample flatten into the hypothesis axis."""
     R, t, valid = pnp.epnp(Xs, xs)  # [2,3,3], [2,3], [2]
     model = jnp.concatenate(
         [R.reshape(2, 9), t.reshape(2, 3)], axis=-1)  # [2,12]
@@ -440,151 +315,6 @@ def ransac_pnp(
         counts=counts, num_hypotheses=int(valid.shape[0]))
 
 
-def ransac_pnp_sweep(
-    Xw: jnp.ndarray, pixels: jnp.ndarray, K: jnp.ndarray,
-    point_mask: jnp.ndarray, cfg: RansacConfig, key_or_seed,
-    interpret: bool = False,
-) -> RansacResult:
-    """PnP RANSAC through the fused P3P Pallas sweep (ops.pallas.sweep_pnp)
-    — the high-throughput path (measured 3.2B pose-hypotheses/s/chip).
-
-    The winning 3-point sample is re-solved exactly on the engine path and
-    LM-refined on its inliers, matching ``ransac_pnp`` semantics (incl.
-    the pixel-true anisotropic threshold).  Pools larger than the
-    packed-index kernel's 16 points route to the counter-replay large-N
-    sweep (``ransac_pnp_sweep_large``).
-    """
-    from ransac_tpu.ops.pallas.sweep_pnp import (BLOCK_H, MAX_POINTS,
-                                                 pnp_ransac_sweep)
-
-    if Xw.shape[0] > MAX_POINTS:
-        return ransac_pnp_sweep_large(
-            Xw, pixels, K, point_mask, cfg, key_or_seed,
-            interpret=interpret)
-
-    pix_n = projection.normalize_pixels(pixels, K)
-    fx, ay = _pnp_threshold_scales(K, pix_n.dtype)
-    thr_n = cfg.threshold / fx
-    # Round up to a whole number of kernel blocks; small requests use a
-    # single smaller block rather than padding to the full BLOCK_H.
-    n_hyp = max(cfg.num_hypotheses, 1024)
-    block = min(BLOCK_H, -(-n_hyp // 1024) * 1024)
-    n_hyp = -(-n_hyp // block) * block
-    # Block-reduced records: row 0 = min-MSAC, row 1 = lexicographic
-    # (max count, min MSAC); masked-sample hypotheses are invalidated
-    # in-kernel, so selecting across blocks with the matching rule is
-    # exact.  The winning root id rides in packed bits 12-13 (ignored —
-    # the host re-solve scores all four roots below).
-    msac_all, counts_all, packed_all = pnp_ransac_sweep(
-        _as_seed(key_or_seed), Xw, pix_n, point_mask, thr_n, n_hyp=n_hyp,
-        interpret=interpret, block_h=block, ay=ay)
-    row = 1 if cfg.selection == "count" else 0
-    msac_all, counts_all, packed_all = (
-        msac_all[row], counts_all[row], packed_all[row])
-    best = _select_best(counts_all, msac_all, cfg.selection)
-    packed = packed_all[best]
-    sample = jnp.stack([packed & 15, (packed >> 4) & 15, (packed >> 8) & 15])
-    R4, t4, v4 = _p3p_all_orders(Xw[sample], pix_n[sample])
-    models4 = jnp.concatenate([R4.reshape(-1, 9), t4], axis=-1)
-    r4 = jax.vmap(lambda m: _pnp_residual(m, Xw, pix_n, ay=ay))(models4)
-    r4_sq = jnp.where(jnp.isfinite(r4), r4 * r4, jnp.inf)
-    inl4 = (r4_sq <= thr_n * thr_n) & point_mask.astype(bool)[None, :]
-    msac4 = jnp.where(
-        v4, jnp.where(point_mask[None, :] > 0,
-                      jnp.minimum(r4_sq, thr_n * thr_n), 0.0).sum(-1),
-        jnp.inf)
-    kbest = jnp.argmin(msac4)
-    model_best = models4[kbest]
-    best_mask = inl4[kbest]
-    R_best = model_best[:9].reshape(3, 3)
-    t_best = model_best[9:12]
-    R_ref, t_ref = R_best, t_best
-    if cfg.refit:
-        w = best_mask.astype(Xw.dtype)
-        R_seed, t_seed = _pnp_refit_seed(
-            R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
-        rvec, tvec, _ = refine_pose(
-            log_so3(R_seed), t_seed, Xw, pixels, K, w,
-            max_iters=max(cfg.refine_iters, 1))
-        ok = jnp.all(jnp.isfinite(rvec)) & jnp.all(jnp.isfinite(tvec))
-        R_ref = jnp.where(ok, exp_so3(rvec), R_best)
-        t_ref = jnp.where(ok, tvec, t_best)
-    model = jnp.concatenate([R_ref.reshape(9), t_ref])
-    return RansacResult(
-        model=model, raw_model=model_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all, num_hypotheses=int(n_hyp) * 4)
-
-
-def ransac_pnp_sweep_large(
-    Xw: jnp.ndarray, pixels: jnp.ndarray, K: jnp.ndarray,
-    point_mask: jnp.ndarray, cfg: RansacConfig, key_or_seed,
-    interpret: bool = False,
-) -> RansacResult:
-    """PnP RANSAC through the large-N fused P3P sweep
-    (ops.pallas.sweep_pnp_large) — fused pose path for pools of up to 512
-    points (SfM map-registration scale, vs 16 for ``ransac_pnp_sweep``).
-
-    Kernel records carry flat hypothesis ids; the winner's 3-point sample
-    is re-derived by replaying the counter PRNG, re-solved exactly
-    (all four Grunert roots re-scored) and LM-refined on its inliers —
-    same semantics as ``ransac_pnp``.
-    """
-    from ransac_tpu.ops.pallas.sweep_pnp_large import (
-        BLOCK_H, pnp_ransac_sweep_large as _sweep, sample_indices3_for)
-
-    pix_n = projection.normalize_pixels(pixels, K)
-    fx, ay = _pnp_threshold_scales(K, pix_n.dtype)
-    thr_n = cfg.threshold / fx
-    n_hyp = max(cfg.num_hypotheses, BLOCK_H)
-    n_hyp = -(-n_hyp // BLOCK_H) * BLOCK_H
-    msac_all, counts_all, packed_all, (seeds, n_valid, order) = _sweep(
-        _as_seed(key_or_seed), Xw, pix_n, point_mask, thr_n, n_hyp=n_hyp,
-        interpret=interpret, ay=ay)
-    row = 1 if cfg.selection == "count" else 0
-    msac_all, counts_all, packed_all = (
-        msac_all[row], counts_all[row], packed_all[row])
-    best = _select_best(counts_all, msac_all, cfg.selection)
-    # Counter replay: packed = flat * 4 + root; re-derive the pool slots
-    # from the flat id and map them back to input rows.
-    pool = sample_indices3_for(packed_all[best][None] >> 2, seeds,
-                               n_valid)[0]
-    sample = order[pool]
-    R4, t4, v4 = _p3p_all_orders(Xw[sample], pix_n[sample])
-    models4 = jnp.concatenate([R4.reshape(-1, 9), t4], axis=-1)
-    r4 = jax.vmap(lambda m: _pnp_residual(m, Xw, pix_n, ay=ay))(models4)
-    r4_sq = jnp.where(jnp.isfinite(r4), r4 * r4, jnp.inf)
-    inl4 = (r4_sq <= thr_n * thr_n) & point_mask.astype(bool)[None, :]
-    msac4 = jnp.where(
-        v4, jnp.where(point_mask[None, :] > 0,
-                      jnp.minimum(r4_sq, thr_n * thr_n), 0.0).sum(-1),
-        jnp.inf)
-    kbest = jnp.argmin(msac4)
-    model_best = models4[kbest]
-    best_mask = inl4[kbest]
-    R_best = model_best[:9].reshape(3, 3)
-    t_best = model_best[9:12]
-    R_ref, t_ref = R_best, t_best
-    if cfg.refit:
-        w = best_mask.astype(Xw.dtype)
-        R_seed, t_seed = _pnp_refit_seed(
-            R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
-        rvec, tvec, _ = refine_pose(
-            log_so3(R_seed), t_seed, Xw, pixels, K, w,
-            max_iters=max(cfg.refine_iters, 1))
-        ok = jnp.all(jnp.isfinite(rvec)) & jnp.all(jnp.isfinite(tvec))
-        R_ref = jnp.where(ok, exp_so3(rvec), R_best)
-        t_ref = jnp.where(ok, tvec, t_best)
-    model = jnp.concatenate([R_ref.reshape(9), t_ref])
-    return RansacResult(
-        model=model, raw_model=model_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all,
-        # 8 samples per record lane x 4 P3P roots; from the kernel's
-        # actual block count, not the requested n_hyp (ADVICE r3).
-        num_hypotheses=int(counts_all.shape[-1]) * 8 * 4)
-
-
 def pnp_pose_from_result(res: RansacResult):
     R = res.model[:9].reshape(3, 3)
     t = res.model[9:12]
@@ -633,70 +363,3 @@ def ransac_essential(
         model=E_ref, raw_model=E_best, inlier_mask=best_mask,
         num_inliers=best_mask.sum(), score=msac[best], best_index=best,
         counts=counts, num_hypotheses=int(valid.shape[0]))
-
-
-def ransac_essential_sweep(
-    x1: jnp.ndarray, x2: jnp.ndarray, point_mask: jnp.ndarray,
-    cfg: RansacConfig, key_or_seed, interpret: bool = False,
-) -> RansacResult:
-    """Essential-matrix RANSAC through the large-N fused 8-point sweep
-    (ops.pallas.sweep_essential_large) — the fused path for two-view
-    matching-scale pools (up to 1024 correspondences).
-
-    Same contract as ``ransac_essential``: ``cfg.threshold`` is the
-    Sampson bound in squared normalized units.  The winner's minimal
-    sample is re-derived by counter replay, re-solved exactly with the
-    normalized 8-point (SVD + rank-2 projection) and refit on its
-    inliers.
-    """
-    from ransac_tpu.ops.pallas.sweep_essential_large import (
-        BLOCK_H as EBLOCK, essential_ransac_sweep_large,
-        minimal_f_canonical, sample_indices_for8)
-
-    seed = _as_seed(key_or_seed)
-    n_hyp = max(cfg.num_hypotheses, EBLOCK)
-    n_hyp = -(-n_hyp // EBLOCK) * EBLOCK
-    msac_all, counts_all, flat_all, (seeds, n_valid, order, norm) = (
-        essential_ransac_sweep_large(
-            seed, x1, x2, point_mask, cfg.threshold, n_hyp=n_hyp,
-            interpret=interpret))
-    row = 1 if cfg.selection == "count" else 0
-    msac_all, counts_all, flat_all = (
-        msac_all[row], counts_all[row], flat_all[row])
-    best = _select_best(counts_all, msac_all, cfg.selection)
-    pool = sample_indices_for8(flat_all[best][None], seeds, n_valid)[0]
-    sample = order[pool]
-    # Re-solve the winner with the SAME canonical-frame arithmetic the
-    # kernel scored, in the sweep's normalized space (projecting a
-    # minimal exactly-fit F to essential — or re-solving it through a
-    # different f32 path — collapses its consensus; measured 342 -> 56 /
-    # -> 175 inliers on a planted 512-point scene).  Essential
-    # enforcement happens in the refit on the consensus set below.
-    m1, m2, s = norm
-    x1_n = (x1 - m1) * s
-    x2_n = (x2 - m2) * s
-    F_n, _ok = minimal_f_canonical(x1_n[sample], x2_n[sample])
-    r_n = epipolar.sampson_distance(F_n, x1_n, x2_n)  # squared, normalized
-    best_mask = (r_n <= cfg.threshold * s * s) & point_mask.astype(bool)
-    # Denormalize for the reported raw model: F = T2^T F_n T1 with
-    # Ti = [[s,0,-s*mi_x],[0,s,-s*mi_y],[0,0,1]].
-    T1m = jnp.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
-    T1m = T1m.at[0, 0].set(s).at[1, 1].set(s)
-    T1m = T1m.at[0, 2].set(-s * m1[0]).at[1, 2].set(-s * m1[1])
-    T2m = jnp.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
-    T2m = T2m.at[0, 0].set(s).at[1, 1].set(s)
-    T2m = T2m.at[0, 2].set(-s * m2[0]).at[1, 2].set(-s * m2[1])
-    E_best = T2m.T @ F_n @ T1m
-    E_ref = E_best
-    if cfg.refit:
-        w = best_mask.astype(x1.dtype)
-        E_ref = epipolar.eight_point(x1, x2, w, essential=True)
-        bad = jnp.logical_not(jnp.all(jnp.isfinite(E_ref)))
-        E_ref = jnp.where(bad, E_best, E_ref)
-    return RansacResult(
-        model=E_ref, raw_model=E_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all,
-        # Executed budget from the kernel's actual block count (8 per
-        # record lane; MIN_WINDOWED_BLOCKS rounding — ADVICE r3).
-        num_hypotheses=int(counts_all.shape[-1]) * 8)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from ransac_tpu.ops.homography import normalization_transform
 from ransac_tpu.ops.linalg import nullspace_last_fast, svd3x3
+from ransac_tpu.ops.precision import einsum, mm
 from ransac_tpu.ops.rotation import project_to_so3
 
 
@@ -32,8 +33,8 @@ def eight_point(
     T1 = normalization_transform(x1, weights)
     T2 = normalization_transform(x2, weights)
     ones = jnp.ones_like(x1[..., :1])
-    p1 = jnp.concatenate([x1, ones], -1) @ jnp.swapaxes(T1, -1, -2)
-    p2 = jnp.concatenate([x2, ones], -1) @ jnp.swapaxes(T2, -1, -2)
+    p1 = mm(jnp.concatenate([x1, ones], -1), jnp.swapaxes(T1, -1, -2))
+    p2 = mm(jnp.concatenate([x2, ones], -1), jnp.swapaxes(T2, -1, -2))
     u1, v1 = p1[..., 0], p1[..., 1]
     u2, v2 = p2[..., 0], p2[..., 1]
     one = jnp.ones_like(u1)
@@ -47,7 +48,7 @@ def eight_point(
     # singular-value constraints enforced in the normalized frame do not
     # survive denormalization (enforcing sigma1=sigma2 there visibly
     # distorts an exact essential matrix and costs inliers).
-    F = jnp.swapaxes(T2, -1, -2) @ F @ T1
+    F = mm(mm(jnp.swapaxes(T2, -1, -2), F), T1)
     if rank2:
         U, S, Vt = svd3x3(F)
         if essential:
@@ -55,7 +56,7 @@ def eight_point(
             S2 = jnp.stack([s, s, jnp.zeros_like(s)], -1)
         else:
             S2 = S.at[..., 2].set(0.0)
-        F = (U * S2[..., None, :]) @ Vt
+        F = mm(U * S2[..., None, :], Vt)
     norm = jnp.linalg.norm(F.reshape(*F.shape[:-2], 9), axis=-1)
     return F / jnp.maximum(norm, 1e-12)[..., None, None]
 
@@ -65,8 +66,8 @@ def sampson_distance(F: jnp.ndarray, x1: jnp.ndarray, x2: jnp.ndarray):
     ones = jnp.ones_like(x1[..., :1])
     p1 = jnp.concatenate([x1, ones], -1)
     p2 = jnp.concatenate([x2, ones], -1)
-    Fx1 = jnp.einsum("...ij,...nj->...ni", F, p1)
-    Ftx2 = jnp.einsum("...ji,...nj->...ni", F, p2)
+    Fx1 = einsum("...ij,...nj->...ni", F, p1)
+    Ftx2 = einsum("...ji,...nj->...ni", F, p2)
     x2Fx1 = jnp.sum(p2 * Fx1, -1)
     denom = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 \
         + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
@@ -86,8 +87,8 @@ def decompose_essential(E: jnp.ndarray):
         [jnp.ones_like(detV), jnp.ones_like(detV), detV], -1)[..., :, None]
     W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
                   dtype=E.dtype)
-    R1 = U @ W @ Vt
-    R2 = U @ W.T @ Vt
+    R1 = mm(mm(U, W), Vt)
+    R2 = mm(mm(U, W.T), Vt)
     t = U[..., :, 2]
     R = jnp.stack([R1, R1, R2, R2], axis=-3)
     ts = jnp.stack([t, -t, t, -t], axis=-2)
@@ -127,7 +128,7 @@ def cheirality_counts(
     zero = jnp.zeros_like(t)
     X = triangulate_dlt(x1, x2, eye, zero, R, t)
     z1 = X[..., 2]
-    Xc2 = jnp.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
+    Xc2 = einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
     z2 = Xc2[..., 2]
     ok = (z1 > 0) & (z2 > 0)
     if weights is not None:
@@ -185,7 +186,7 @@ def refine_relative_pose(R: jnp.ndarray, t: jnp.ndarray,
         tx = jnp.array([[0.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]]) * tn[0] + \
             jnp.array([[0, 0, 1.0], [0, 0, 0], [-1.0, 0, 0]]) * tn[1] + \
             jnp.array([[0, -1.0, 0], [1.0, 0, 0], [0, 0, 0]]) * tn[2]
-        return tx @ Rm
+        return mm(tx, Rm)
 
     def resid(params):
         E = build_E(params)

@@ -1,11 +1,11 @@
 """WGS84 <-> UTM geodesy as pure array math (Karney/Krüger series, order 6).
 
-TPU-native replacement for ``pyproj.Transformer`` (PROJ's C transverse
+JAX replacement for ``pyproj.Transformer`` (PROJ's C transverse
 Mercator), which the reference calls through ``GeoCoordTransformer``
 (``/root/reference/main_v1.py:36-59``) — including *inside the ray-march
 inner loop* (``main_v1.py:642``), one FFI call per 1-m step.  Re-implementing
 the projection as jittable series math lets geodesy run inside ``jit``/
-``vmap``/Pallas, so an entire batch of rays can be marched on-device.
+``vmap``, so an entire batch of rays can be marched on-device.
 
 Algorithm: Karney, "Transverse Mercator with an accuracy of a few
 nanometers" (J. Geodesy 2011) — conformal-latitude + 6th-order Krüger

@@ -1,6 +1,6 @@
 """Homography estimation: normalized DLT (4-point minimal and N-point LSQ).
 
-TPU-native replacement for the solver inside ``cv2.findHomography(...,
+JAX replacement for the solver inside ``cv2.findHomography(...,
 cv2.RANSAC, thresh)`` (``/root/reference/main_v1.py:312``).  OpenCV runs a
 sequential hypothesize-and-verify loop in C++; here the minimal solver is a
 pure function over a [4,2]x[4,2] sample that vmaps over a hypothesis tensor
@@ -17,6 +17,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ransac_tpu.ops.linalg import inv3x3, nullspace_last_fast
+from ransac_tpu.ops.precision import mm
 
 
 def normalization_transform(pts: jnp.ndarray, mask: jnp.ndarray | None = None):
@@ -65,8 +66,8 @@ def dlt_homography(
     Ts = normalization_transform(src, weights)
     Td = normalization_transform(dst, weights)
     ones = jnp.ones_like(src[..., :1])
-    sh = jnp.concatenate([src, ones], -1) @ jnp.swapaxes(Ts, -1, -2)
-    dh = jnp.concatenate([dst, ones], -1) @ jnp.swapaxes(Td, -1, -2)
+    sh = mm(jnp.concatenate([src, ones], -1), jnp.swapaxes(Ts, -1, -2))
+    dh = mm(jnp.concatenate([dst, ones], -1), jnp.swapaxes(Td, -1, -2))
     x, y = sh[..., 0], sh[..., 1]
     u, v = dh[..., 0], dh[..., 1]
     zero = jnp.zeros_like(x)
@@ -80,7 +81,7 @@ def dlt_homography(
     h = nullspace_last_fast(A)
     Hn = h.reshape(*h.shape[:-1], 3, 3)
     # Denormalize: H = Td^-1 Hn Ts.
-    H = inv3x3(Td) @ (Hn @ Ts)  # 3x3: closed-form, stays vectorized under vmap
+    H = mm(inv3x3(Td), mm(Hn, Ts))  # 3x3: closed-form, stays vectorized under vmap
     s = H[..., 2:3, 2:3]
     s = jnp.where(jnp.abs(s) < 1e-12, 1.0, s)
     return H / s
@@ -90,9 +91,9 @@ def dlt_homography_minimal(src: jnp.ndarray, dst: jnp.ndarray):
     """Exact 4-point homography via normalized 8x8 solve (h22=1).
 
     The hot-path minimal solver: ``solve_unrolled`` keeps the whole
-    hypothesis batch in VPU registers (measured ~200x faster than XLA's
-    batched-SVD nullspace on TPU; the SVD path remains in
-    ``dlt_homography`` for overdetermined refits where volume is low).
+    hypothesis batch elementwise, with no batched SVD (the SVD path
+    remains in ``dlt_homography`` for overdetermined refits where volume
+    is low).
     h22=0 configurations (centroid mapped to infinity) surface as bad
     pivots -> ok=False, exactly the hypotheses RANSAC should discard.
 
@@ -103,8 +104,8 @@ def dlt_homography_minimal(src: jnp.ndarray, dst: jnp.ndarray):
     Ts = normalization_transform(src)
     Td = normalization_transform(dst)
     ones = jnp.ones_like(src[..., :1])
-    sh = jnp.concatenate([src, ones], -1) @ jnp.swapaxes(Ts, -1, -2)
-    dh = jnp.concatenate([dst, ones], -1) @ jnp.swapaxes(Td, -1, -2)
+    sh = mm(jnp.concatenate([src, ones], -1), jnp.swapaxes(Ts, -1, -2))
+    dh = mm(jnp.concatenate([dst, ones], -1), jnp.swapaxes(Td, -1, -2))
     x, y = sh[..., 0], sh[..., 1]
     u, v = dh[..., 0], dh[..., 1]
     zero = jnp.zeros_like(x)
@@ -129,7 +130,7 @@ def dlt_homography_minimal(src: jnp.ndarray, dst: jnp.ndarray):
         jnp.stack([zeros, inv_s, my], -1),
         jnp.stack([zeros, zeros, ones_], -1),
     ], axis=-2)
-    H = Td_inv @ Hn @ Ts
+    H = mm(mm(Td_inv, Hn), Ts)
     h22 = H[..., 2:3, 2:3]
     scale = jnp.where(jnp.abs(h22) < 1e-12, 1.0, h22)
     H = H / scale

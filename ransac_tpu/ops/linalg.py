@@ -1,8 +1,9 @@
 """Small closed-form linear-algebra kernels for minimal solvers.
 
-TPUs have no general nonsymmetric eigensolver, so the quartic at the core of
-P3P (Grunert) cannot go through a companion matrix as CPU implementations
-do.  Instead: closed-form real-arithmetic cubic (trigonometric/Cardano) and
+XLA has no batched general nonsymmetric eigensolver on every backend, so
+the quartic at the core of P3P (Grunert) does not go through a companion
+matrix as CPU implementations do.  Instead: closed-form real-arithmetic
+cubic (trigonometric/Cardano) and
 quartic (Ferrari) solvers, fully branch-free via ``jnp.where`` and therefore
 vmappable across hypothesis tensors.
 """
@@ -11,6 +12,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from ransac_tpu.ops.precision import einsum
+
 
 
 def solve_cubic_real(a, b, c, d):
@@ -121,11 +125,10 @@ def solve_quartic_real(a, b, c, d, e):
 
 def solve_unrolled(A: jnp.ndarray, b: jnp.ndarray):
     """Batched small dense solve by fully-unrolled Gaussian elimination with
-    partial pivoting — the TPU-native replacement for LAPACK-style batched
-    LU, which XLA lowers to a serial per-matrix loop that runs ~0.07M
-    solves/s on TPU.  Here every scalar of the n x n system is a [batch]
-    vector and each elimination step is a handful of VPU ops, so the whole
-    batch solves in registers (measured >30M 8x8 solves/s on v5e).
+    partial pivoting, in place of LAPACK-style batched LU (a per-matrix
+    loop on some backends).  Here every scalar of the n x n system is a
+    [batch] vector and each elimination step is a handful of elementwise
+    ops, so XLA fuses the whole batch's solve.
 
     A [..., n, n], b [..., n] with small static n (<= ~12).
     Returns (x [..., n], ok [...]) where ok flags well-conditioned pivots.
@@ -141,7 +144,7 @@ def solve_unrolled(A: jnp.ndarray, b: jnp.ndarray):
         # Swap row k with pivot row (one_hot-blend, no dynamic indexing).
         rows = M[..., k:, :]                              # [..., n-k, n+1]
         sel = jax.nn.one_hot(piv_rel, n - k, dtype=M.dtype)  # [..., n-k]
-        pivot_row = jnp.einsum("...r,...rc->...c", sel, rows)
+        pivot_row = einsum("...r,...rc->...c", sel, rows)
         row_k = rows[..., 0, :]
         rows = rows - sel[..., None] * (pivot_row - row_k)[..., None, :]
         rows = rows.at[..., 0, :].set(pivot_row)
@@ -156,7 +159,7 @@ def solve_unrolled(A: jnp.ndarray, b: jnp.ndarray):
     x = jnp.zeros_like(b)
     for k in range(n - 1, -1, -1):
         rhs = M[..., k, n]
-        dot = jnp.einsum("...j,...j->...", M[..., k, k + 1:n], x[..., k + 1:]) \
+        dot = einsum("...j,...j->...", M[..., k, k + 1:n], x[..., k + 1:]) \
             if k + 1 < n else jnp.zeros_like(rhs)
         diag = M[..., k, k]
         inv_d = 1.0 / jnp.where(jnp.abs(diag) < 1e-12, 1e-12, diag)
@@ -175,10 +178,9 @@ def nullspace_last_fast(A: jnp.ndarray, iters: int = 4) -> jnp.ndarray:
     """Smallest right-singular vector of A [...,m,n] WITHOUT LAPACK.
 
     Inverse iteration on the shifted normal matrix M = A^T A + eps*tr(M)*I
-    through :func:`solve_unrolled`, so the whole batch stays in VPU
-    registers — XLA lowers batched small SVD to a serial per-matrix loop
-    (~0.07M ops/s on TPU, PERF.md), which makes ``nullspace_last``
-    dominate vmapped refit chains.  Each iteration multiplies the target
+    through :func:`solve_unrolled`, so the whole batch stays elementwise
+    — batched small SVD is a per-matrix loop on some backends, which made
+    ``nullspace_last`` dominate vmapped refit chains.  Each iteration multiplies the target
     eigencomponent by ~(lambda_2+eps)/(lambda_1+eps), so for DLT systems
     (normalized coords: lambda_2 = O(1), lambda_1 = residual^2) a handful
     of iterations reaches f32 roundoff.  Two deterministic starts guard
@@ -186,7 +188,7 @@ def nullspace_last_fast(A: jnp.ndarray, iters: int = 4) -> jnp.ndarray:
     Rayleigh quotient wins.
     """
     n = A.shape[-1]
-    M = jnp.einsum("...mi,...mj->...ij", A, A)
+    M = einsum("...mi,...mj->...ij", A, A)
     tr = jnp.trace(M, axis1=-2, axis2=-1)[..., None, None]
     eye = jnp.eye(n, dtype=A.dtype)
     Ms = M + (1e-6 * tr / n + 1e-30) * eye
@@ -205,7 +207,7 @@ def nullspace_last_fast(A: jnp.ndarray, iters: int = 4) -> jnp.ndarray:
                       dtype=A.dtype))
 
     def rq(x):
-        return jnp.einsum("...i,...ij,...j->...", x, M, x)
+        return einsum("...i,...ij,...j->...", x, M, x)
 
     pick = (rq(x1) <= rq(x2))[..., None]
     return jnp.where(pick, x1, x2)
@@ -215,12 +217,11 @@ def solve_spd_gj(A: jnp.ndarray, b: jnp.ndarray,
                  eps: float = 1e-12) -> jnp.ndarray:
     """Single medium-size SPD solve by pivot-free Gauss-Jordan.
 
-    ``jnp.linalg.solve`` (LU) on one [N,N] system lowers to a serial
-    LAPACK-style factorization on TPU — measured 1.8 ms for N=192, ~40%
-    of a whole Schur-reduced BA step.  For the damped SPD camera system
-    no pivoting is needed, so a ``fori_loop`` of N rank-1 row
-    eliminations over the [N, N+1] augmented matrix (each trip one VPU
-    outer-product update) solves it in ~0.2 ms.
+    For the damped SPD camera system no pivoting is needed, so a
+    ``fori_loop`` of N rank-1 row eliminations over the [N, N+1]
+    augmented matrix (each trip one outer-product update) replaces
+    ``jnp.linalg.solve``'s LU, which was a large share of a Schur-reduced
+    BA step where this was first built.  Not yet compared on the GPU.
 
     A [N,N] SPD (damped), b [N].  Returns x [N].
     """
@@ -244,9 +245,9 @@ def solve_spd_gj(A: jnp.ndarray, b: jnp.ndarray,
 def inv3x3(A: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
     """Closed-form batched 3x3 inverse (adjugate / det).
 
-    ``jnp.linalg.inv`` on a [P,3,3] batch lowers to a serial per-matrix
-    LAPACK-style loop on TPU (same pathology as the batched SVD) — in
-    bundle adjustment the point-block inverses of the Schur reduction sit
+    ``jnp.linalg.inv`` on a [P,3,3] batch can lower to a per-matrix
+    LAPACK-style loop (same pathology as the batched SVD) — in bundle
+    adjustment the point-block inverses of the Schur reduction sit
     on every LM iteration, so they must stay vectorized.  ``eps`` is added
     to the diagonal first (damping/regularization).
     """
@@ -278,8 +279,8 @@ def eigh3x3(A: jnp.ndarray):
     """Closed-form eigendecomposition of a symmetric 3x3 batch.
 
     Returns (eigvals ascending [...,3], V [...,3,3] orthonormal columns).
-    Batched ``jnp.linalg.eigh``/``svd`` lower to serial per-matrix loops on
-    TPU; this is the vectorized replacement used by the 3x3 SVD below.
+    Batched ``jnp.linalg.eigh``/``svd`` can lower to per-matrix loops;
+    this is the vectorized replacement used by the 3x3 SVD below.
 
     Eigenvalues: trigonometric (Smith) formula.  Eigenvectors: the most
     isolated eigenvalue's vector via the largest row-cross-product of
@@ -347,8 +348,8 @@ def eigh3x3(A: jnp.ndarray):
     w1 = unit(cross(v_iso, axis))
     w2 = cross(v_iso, w1)
     # Restricted 2x2 symmetric eigenproblem.
-    Aw1 = jnp.einsum("...ij,...j->...i", A, w1)
-    Aw2 = jnp.einsum("...ij,...j->...i", A, w2)
+    Aw1 = einsum("...ij,...j->...i", A, w1)
+    Aw2 = einsum("...ij,...j->...i", A, w2)
     ra = jnp.sum(w1 * Aw1, -1)
     rb = jnp.sum(w1 * Aw2, -1)
     rc = jnp.sum(w2 * Aw2, -1)
@@ -386,14 +387,14 @@ def svd3x3(F: jnp.ndarray):
     Exact for rank-2 reconstructions (the sigma_3 component is never used
     with a nonzero weight by callers).
     """
-    lam, V = eigh3x3(jnp.einsum("...ji,...jk->...ik", F, F))
+    lam, V = eigh3x3(einsum("...ji,...jk->...ik", F, F))
     # Descending order.
     lam_d = lam[..., ::-1]
     V = V[..., ::-1]
     S = jnp.sqrt(jnp.maximum(lam_d, 0.0))
-    u0 = jnp.einsum("...ij,...j->...i", F, V[..., 0]) / jnp.maximum(
+    u0 = einsum("...ij,...j->...i", F, V[..., 0]) / jnp.maximum(
         S[..., 0], 1e-30)[..., None]
-    u1 = jnp.einsum("...ij,...j->...i", F, V[..., 1]) / jnp.maximum(
+    u1 = einsum("...ij,...j->...i", F, V[..., 1]) / jnp.maximum(
         S[..., 1], 1e-30)[..., None]
     # f32 safety: re-orthonormalize u1 against u0.
     u0 = u0 / jnp.maximum(jnp.linalg.norm(u0, axis=-1, keepdims=True), 1e-30)
@@ -405,7 +406,7 @@ def svd3x3(F: jnp.ndarray):
         u0[..., 0] * u1[..., 1] - u0[..., 1] * u1[..., 0]], -1)
     # Align u2 with F v2 when sigma_3 is non-negligible (a true SVD may
     # need det(U) = -1); for (near-)rank-2 inputs keep the det(+1) cross.
-    fv2 = jnp.einsum("...ij,...j->...i", F, V[..., 2])
+    fv2 = einsum("...ij,...j->...i", F, V[..., 2])
     flip = ((jnp.sum(u2 * fv2, -1) < 0.0)
             & (S[..., 2] > 1e-6 * jnp.maximum(S[..., 0], 1e-30)))
     u2 = jnp.where(flip[..., None], -u2, u2)

@@ -1,6 +1,6 @@
 """Generic Levenberg-Marquardt inside jit.
 
-TPU-native replacement for ``cv2.solvePnPRefineLM``
+JAX replacement for ``cv2.solvePnPRefineLM``
 (``/root/reference/main_v1.py:508``), OpenCV's internal homography LM
 refinement, and ``scipy.optimize.least_squares`` on the 3-scale ray fit
 (``test_pro.py:882-886``).  One damped Gauss-Newton core, Jacobians by
@@ -16,6 +16,9 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from ransac_tpu.ops.precision import mm
+
 
 
 class LMResult(NamedTuple):
@@ -54,22 +57,22 @@ def levenberg_marquardt(
         x, lam, cost, it, done = carry
         r = residual_fn(x)
         J = jax.jacfwd(residual_fn)(x)
-        g = J.T @ r
-        H = J.T @ J
+        g = mm(J.T, r)
+        H = mm(J.T, J)
         # Marquardt scaling: lam * diag(H) keeps steps well-conditioned
         # across wildly different parameter scales (rotation vs meters).
         D = jnp.diag(jnp.maximum(jnp.diag(H), 1e-12))
         if n <= 16:
-            # Register-resident unrolled solve: under vmap (e.g. 458
-            # per-candidate refinements) jnp.linalg.solve lowers to a
-            # serial per-matrix LAPACK-style loop on TPU.
+            # Unrolled elementwise solve: under vmap (e.g. 458
+            # per-candidate refinements) jnp.linalg.solve can lower to a
+            # per-matrix LAPACK-style loop.
             from ransac_tpu.ops.linalg import solve_unrolled
 
             dx, _ = solve_unrolled(H + lam * D, -g)
         else:
             # Damped J^T J is SPD: pivot-free Gauss-Jordan fori_loop
-            # beats jnp.linalg.solve's serial LU on TPU (e.g. the
-            # pose-graph's [6V, 6V] system).
+            # (see ops.linalg.solve_spd_gj; e.g. the pose-graph's
+            # [6V, 6V] system).
             from ransac_tpu.ops.linalg import solve_spd_gj
 
             dx = solve_spd_gj(H + lam * D, -g)
@@ -157,7 +160,7 @@ def fit_ray_scales(
     weights: jnp.ndarray | None = None,
     max_iters: int = 30,
 ):
-    """3-parameter per-axis ray-scale fit — the TPU-native equivalent of
+    """3-parameter per-axis ray-scale fit — the JAX equivalent of
     ``scipy.optimize.least_squares(residual_scales_control_points, ...)``
     (test_pro.py:645-680, 882-887): find s minimizing
     || normalize(s * ray_i) - ideal_dir_i ||."""

@@ -1,14 +1,14 @@
 """Perspective-n-Point solvers: P3P (Grunert), EPnP, DLT-PnP.
 
-TPU-native replacement for the minimal solvers inside
+JAX replacement for the minimal solvers inside
 ``cv2.solvePnPRansac`` (``/root/reference/main_v1.py:497-502``,
 ``testpro-K.py:72-75``).  OpenCV iterates P3P/EPnP sequentially in C++; here
 each solver is a pure function over one minimal sample that vmaps over a
 hypothesis tensor — thousands of P3P solves per XLA launch.
 
-TPU constraint that shapes the design: there is no general nonsymmetric
-eigensolver on TPU, so the P3P quartic cannot use a companion matrix (the
-CPU route).  Instead the quartic is built by explicit resultant elimination
+Constraint that shapes the design: XLA has no batched general
+nonsymmetric eigensolver on every backend, so the P3P quartic does not use
+a companion matrix (the CPU route).  Instead the quartic is built by explicit resultant elimination
 and solved closed-form (Ferrari, ``ops.linalg.solve_quartic_real``),
 branch-free and vmappable.
 
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from ransac_tpu.ops.linalg import (inv3x3, nullspace_last_fast,
                                     solve_quartic_real, solve_unrolled)
+from ransac_tpu.ops.precision import einsum, mm
 from ransac_tpu.ops.rotation import project_to_so3
 
 
@@ -47,9 +48,9 @@ def absolute_orientation(
     cc = (Xc * w[..., None]).sum(-2) / wsum
     Aw = Xw - cw[..., None, :]
     Ac = Xc - cc[..., None, :]
-    H = jnp.einsum("...ni,...nj->...ij", Ac * w[..., None], Aw)
+    H = einsum("...ni,...nj->...ij", Ac * w[..., None], Aw)
     R = project_to_so3(H)
-    t = cc - jnp.einsum("...ij,...j->...i", R, cw)
+    t = cc - einsum("...ij,...j->...i", R, cw)
     return R, t
 
 
@@ -58,9 +59,9 @@ def triad_orientation(Xw: jnp.ndarray, Xc: jnp.ndarray):
 
     For congruent point triples (the P3P back-substitution case) this is
     closed-form and eigensolver-free: build an orthonormal triad from the
-    triangle in each coordinate system and compose.  Batched pure-VPU math
-    — the hot-path replacement for SVD-based Kabsch, which XLA executes as
-    a serial per-matrix loop on TPU.
+    triangle in each coordinate system and compose.  Batched elementwise
+    math — the hot-path replacement for SVD-based Kabsch, which can run
+    as a per-matrix loop.
 
     Xw/Xc [...,3,3] (rows = points).  Returns (R, t): Xc ~ R @ Xw + t.
     """
@@ -77,10 +78,10 @@ def triad_orientation(Xw: jnp.ndarray, Xc: jnp.ndarray):
 
     Bw = triad(Xw)
     Bc = triad(Xc)
-    R = Bc @ jnp.swapaxes(Bw, -1, -2)
+    R = mm(Bc, jnp.swapaxes(Bw, -1, -2))
     cw = Xw.mean(-2)
     cc = Xc.mean(-2)
-    t = cc - jnp.einsum("...ij,...j->...i", R, cw)
+    t = cc - einsum("...ij,...j->...i", R, cw)
     return R, t
 
 
@@ -147,9 +148,9 @@ def p3p_grunert(Xw: jnp.ndarray, pixels_norm: jnp.ndarray):
 
     # Newton polish of the depths on the exact law-of-cosines system —
     # recovers the precision the f32 quartic loses on clustered roots.
-    # The 3x3 solve is closed-form (adjugate): XLA lowers batched
-    # jnp.linalg.solve as a serial per-matrix loop on TPU, which would
-    # throttle the whole hypothesis sweep.
+    # The 3x3 solve is closed-form (adjugate): batched jnp.linalg.solve
+    # can lower to a per-matrix loop, which would throttle the whole
+    # hypothesis batch.
     ca, cb, cg = cos_a[..., None], cos_b[..., None], cos_g[..., None]
     a2e, b2e, c2e = a2[..., None], b2[..., None], c2[..., None]
     for _ in range(3):
@@ -206,7 +207,7 @@ def epnp(Xw: jnp.ndarray, pixels_norm: jnp.ndarray,
     # Control points: centroid + principal axes.
     c0 = (Xw * w[..., None]).sum(-2) / wsum[..., None]
     Xc0 = (Xw - c0[..., None, :]) * w[..., None]
-    cov = jnp.einsum("...ni,...nj->...ij", Xc0, Xc0) / wsum[..., None, None]
+    cov = einsum("...ni,...nj->...ij", Xc0, Xc0) / wsum[..., None, None]
     eval_, evec = jnp.linalg.eigh(cov)  # ascending
     scale = jnp.sqrt(jnp.maximum(eval_, 1e-10))
     ctrl = jnp.concatenate([
@@ -252,7 +253,7 @@ def epnp(Xw: jnp.ndarray, pixels_norm: jnp.ndarray,
     My = rows_v(v) * w[..., None]
     M = jnp.concatenate([Mx, My], axis=-2)  # [...,2N,12]
 
-    MtM = jnp.einsum("...ni,...nj->...ij", M, M)
+    MtM = einsum("...ni,...nj->...ij", M, M)
     eigval, eigvec = jnp.linalg.eigh(MtM)
     V = eigvec[..., :, 0]  # kernel vector (smallest eigenvalue), [...,12]
     V2 = eigvec[..., :, 1]
@@ -270,7 +271,7 @@ def epnp(Xw: jnp.ndarray, pixels_norm: jnp.ndarray,
             jnp.maximum((dist_c[..., iu[0], iu[1]] ** 2).sum(-1), 1e-20)
         cc_cam = beta[..., None, None] * cc
         # Sign: depths must be positive for the majority of points.
-        Xcam = jnp.einsum("...nj,...jk->...nk", alphas, cc_cam)
+        Xcam = einsum("...nj,...jk->...nk", alphas, cc_cam)
         sign = jnp.where((Xcam[..., 2] * w).sum(-1) < 0, -1.0, 1.0)
         return Xcam * sign[..., None, None]
 
@@ -288,13 +289,13 @@ def epnp(Xw: jnp.ndarray, pixels_norm: jnp.ndarray,
             (d1 * d1).sum(-1), 2.0 * (d1 * d2).sum(-1), (d2 * d2).sum(-1)
         ], -1)  # [...,6,3]
         rhs = (dist_w[..., iu[0], iu[1]] ** 2)[..., None]
-        AtA = jnp.einsum("...ni,...nj->...ij", A, A)
-        Atb = jnp.einsum("...ni,...nk->...ik", A, rhs)[..., 0]
-        sol = jnp.einsum("...ij,...j->...i", inv3x3(AtA, eps=1e-9), Atb)
+        AtA = einsum("...ni,...nj->...ij", A, A)
+        Atb = einsum("...ni,...nk->...ik", A, rhs)[..., 0]
+        sol = einsum("...ij,...j->...i", inv3x3(AtA, eps=1e-9), Atb)
         b1 = jnp.sqrt(jnp.maximum(sol[..., 0], 1e-20))
         b2 = sol[..., 1] / jnp.maximum(b1, 1e-10)
         cc_cam = b1[..., None, None] * cc1 + b2[..., None, None] * cc2
-        Xcam = jnp.einsum("...nj,...jk->...nk", alphas, cc_cam)
+        Xcam = einsum("...nj,...jk->...nk", alphas, cc_cam)
         sign = jnp.where((Xcam[..., 2] * w).sum(-1) < 0, -1.0, 1.0)
         return Xcam * sign[..., None, None]
 

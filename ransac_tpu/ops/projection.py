@@ -1,6 +1,6 @@
 """Pinhole camera projection / unprojection kernels.
 
-TPU-native replacement for ``cv2.projectPoints`` (``testpro-K.py:33``) and
+JAX replacement for ``cv2.projectPoints`` (``testpro-K.py:33``) and
 the hand-rolled east-axis plane projection at the heart of the reference's
 candidate scoring (``main_v1.py:306-311``).  Everything is batched and
 differentiable: the same projection code serves RANSAC inlier scoring, PnP
@@ -14,6 +14,9 @@ calibration parity holds.
 from __future__ import annotations
 
 import jax.numpy as jnp
+
+from ransac_tpu.ops.precision import einsum
+
 
 
 def intrinsics_from_physical(
@@ -46,7 +49,7 @@ def project_points(
     used for cheirality masking; points behind the camera still produce
     finite pixels (guarded divide) so the caller can mask instead of branch.
     """
-    Xc = jnp.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
+    Xc = einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
     z = Xc[..., 2]
     inv_z = 1.0 / jnp.where(jnp.abs(z) < 1e-12, 1e-12, z)
     xn = Xc[..., 0] * inv_z
@@ -114,7 +117,7 @@ def pixel_to_ray(
     cam = jnp.concatenate([xn, ones], axis=-1)
     if not force_unit_z:
         cam = cam / jnp.linalg.norm(cam, axis=-1, keepdims=True)
-    world = jnp.einsum("...ji,...nj->...ni", R, cam)  # R^T @ cam
+    world = einsum("...ji,...nj->...ni", R, cam)  # R^T @ cam
     return world / jnp.linalg.norm(world, axis=-1, keepdims=True)
 
 
@@ -139,7 +142,7 @@ def east_axis_plane_projection(
 
 def camera_origin_from_pose(R: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
     """World-frame camera center: C = -R^T t (main_v1.py:910)."""
-    return -jnp.einsum("...ji,...j->...i", R, t)
+    return -einsum("...ji,...j->...i", R, t)
 
 
 def clip_translation(t: jnp.ndarray, max_norm: float = 1e4) -> jnp.ndarray:
@@ -161,4 +164,4 @@ def translation_from_origin(R: jnp.ndarray, origin: jnp.ndarray) -> jnp.ndarray:
     (main_v1.py:532-544 — dead code there); inverse of
     :func:`camera_origin_from_pose`.
     """
-    return -jnp.einsum("...ij,...j->...i", R, origin)
+    return -einsum("...ij,...j->...i", R, origin)

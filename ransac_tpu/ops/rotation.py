@@ -1,6 +1,6 @@
 """SO(3) operations: Rodrigues exp/log maps, quaternions.
 
-TPU-native replacement for ``cv2.Rodrigues`` (called at
+JAX replacement for ``cv2.Rodrigues`` (called at
 ``/root/reference/main_v1.py:895`` and ``testpro-K.py:84,136,169``): a
 closed-form, branch-free (``jnp.where``) exponential map that vmaps over
 hypothesis tensors — every RANSAC hypothesis and every BA iterate goes
@@ -15,6 +15,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ransac_tpu.ops.linalg import svd3x3
+from ransac_tpu.ops.precision import mm
 
 _EPS = 1e-8
 
@@ -48,7 +49,7 @@ def exp_so3(rvec: jnp.ndarray) -> jnp.ndarray:
         (1.0 - jnp.cos(theta)) / jnp.where(small, 1.0, theta2),
     )
     K = hat(rvec)
-    KK = K @ K
+    KK = mm(K, K)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=rvec.dtype), K.shape)
     return eye + a[..., None, None] * K + b[..., None, None] * KK
 
@@ -126,12 +127,12 @@ def project_to_so3(M: jnp.ndarray) -> jnp.ndarray:
     """Nearest rotation matrix (Frobenius) via SVD — used after linear pose
     solves (DLT PnP, absolute orientation) to re-orthogonalize."""
     U, _, Vt = svd3x3(M)
-    det = jnp.linalg.det(U @ Vt)
+    det = jnp.linalg.det(mm(U, Vt))
     D = jnp.stack([jnp.ones_like(det), jnp.ones_like(det), det], axis=-1)
-    return (U * D[..., None, :]) @ Vt
+    return mm(U * D[..., None, :], Vt)
 
 
 def geodesic_distance(R1: jnp.ndarray, R2: jnp.ndarray) -> jnp.ndarray:
     """Angle (radians) between two rotations."""
-    tr = jnp.trace(jnp.swapaxes(R1, -1, -2) @ R2, axis1=-2, axis2=-1)
+    tr = jnp.trace(mm(jnp.swapaxes(R1, -1, -2), R2), axis1=-2, axis2=-1)
     return jnp.arccos(jnp.clip((tr - 1.0) / 2.0, -1.0, 1.0))

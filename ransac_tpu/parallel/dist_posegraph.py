@@ -7,7 +7,7 @@ its edges' residuals and dense Gauss-Newton normal-equation blocks, and
 ONE ``psum`` of the [6V, 6V] / [6V] system per iteration is the only
 cross-shard traffic — the damped solve then runs replicated on every
 device.  At keyframe-graph scale (V in the hundreds) the dense normal
-equations are a few MB; the psum rides ICI.
+equations are a few MB per psum.
 
 Padding edges carry weight 0 and contribute exactly nothing, so the
 device count never changes the optimum.
@@ -25,6 +25,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ransac_tpu.ba.posegraph import (PoseGraph, PoseGraphSim3,
                                      edge_residuals, edge_residuals_sim3)
+from ransac_tpu.ops.precision import mm
 
 
 def _pad_edges(g: PoseGraph, mult: int) -> PoseGraph:
@@ -68,8 +69,8 @@ def distributed_pose_graph(g: PoseGraph, mesh: Mesh, n_iters: int = 20,
             x, lam, cost = state
             r = res_fn(x)
             J = jax.jacfwd(res_fn)(x)                     # [6E_s, 6V]
-            JtJ = psum(J.T @ J)
-            Jtr = psum(J.T @ r)
+            JtJ = psum(mm(J.T, J))
+            Jtr = psum(mm(J.T, r))
             dU = jnp.maximum(jnp.diagonal(JtJ), 1e-8)
             A = JtJ + lam * jnp.diag(dU)
             # Pin node 0: zero its rows/cols, unit diagonal.
@@ -150,8 +151,8 @@ def distributed_pose_graph_sim3(g: PoseGraphSim3, mesh: Mesh,
             x, lam, cost = state
             r = res_fn(x)
             J = jax.jacfwd(res_fn)(x)                     # [7E_s, 7V]
-            JtJ = psum(J.T @ J)
-            Jtr = psum(J.T @ r)
+            JtJ = psum(mm(J.T, J))
+            Jtr = psum(mm(J.T, r))
             dU = jnp.maximum(jnp.diagonal(JtJ), 1e-8)
             A = JtJ + lam * jnp.diag(dU)
             A = A * fix[:, None] * fix[None, :] + jnp.diag(1.0 - fix)

@@ -8,8 +8,9 @@ named ``jax.sharding.Mesh``:
 - ``model`` axis: hypothesis blocks / map blocks / camera blocks (TP/EP
   analog)
 
-Collectives ride ICI within a slice and DCN across slices; nothing here
-speaks NCCL — XLA inserts the transfers from shardings.
+Nothing here names a transport: XLA inserts the transfers from shardings
+(NCCL between GPUs).  The GPUs of one host are joined all to all, so the
+mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
-"""Multi-host initialization and pod-slice mesh construction.
+"""Multi-host initialization and cluster mesh construction.
 
 The reference has no distributed backend at all (SURVEY.md §2.5 — no
 NCCL/MPI/Gloo/UCX anywhere); this module is the framework's multi-host
 entry: ``jax.distributed.initialize`` + a mesh whose ``data`` axis spans
 hosts (keyframes/observations partitioned per host, SURVEY.md §5
 "keyframe-window partitioning") and whose ``model`` axis stays within a
-host so hypothesis/map-block collectives ride ICI, with only the
-``data``-axis reductions (the Schur-reduced camera system psum in
-parallel.dist_ba) crossing DCN.
+host so hypothesis/map-block collectives stay on the host's links, with
+only the ``data``-axis reductions (the Schur-reduced camera system psum
+in parallel.dist_ba) crossing hosts.
 
 Single-host processes degrade gracefully: ``initialize_cluster`` is a
 no-op when no coordinator is configured, so every pipeline runs unchanged
-from a laptop to a pod slice.
+from a laptop to a multi-host cluster.
 """
 
 from __future__ import annotations
@@ -35,10 +35,7 @@ def initialize_cluster(
     """Initialize jax.distributed when a cluster is configured.
 
     Reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID when
-    args are None (also honors the standard TPU pod metadata autodetect by
-    calling initialize() with no args when only the env flag
-    RANSAC_TPU_MULTIHOST=1 is set).  Returns True if distributed mode is
-    active.
+    args are None.  Returns True if distributed mode is active.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -55,20 +52,15 @@ def initialize_cluster(
         log.info("distributed init: %d processes, this is %d",
                  jax.process_count(), jax.process_index())
         return True
-    if os.environ.get("RANSAC_TPU_MULTIHOST") == "1":
-        jax.distributed.initialize()  # TPU pod autodetect
-        log.info("distributed init (autodetect): %d processes",
-                 jax.process_count())
-        return True
     return False
 
 
 def pod_mesh(model_axis: int | None = None) -> Mesh:
     """Global (data, model) mesh over every attached device.
 
-    ``model`` spans devices *within* a host (ICI-local collectives for
+    ``model`` spans devices *within* a host (host-local collectives for
     hypothesis blocks / map blocks); ``data`` spans the rest, crossing
-    hosts over DCN only for the small reduced systems.
+    hosts only for the small reduced systems.
     """
     devices = jax.devices()
     n = len(devices)

@@ -9,7 +9,7 @@ shards that axis over the mesh ``data`` dimension with ``shard_map``:
   contiguous block of frames (pure vmap — no communication);
 - consecutive-pair matching needs each block's RIGHT neighbor's first
   frame, exchanged with one ``lax.ppermute`` hop over the ``data`` axis
-  (descriptors + validity ride ICI once per step, ~K*D floats);
+  (descriptors + validity move once per step, ~K*D floats);
 - outputs keep global frame order, so the host-side track chaining and
   the SfM pipeline (``pipelines.sfm.incremental_sfm``) consume the
   distributed and single-device results identically.

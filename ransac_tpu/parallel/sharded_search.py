@@ -1,6 +1,6 @@
 """Distributed candidate search: shard_map over a (data, model) mesh.
 
-The TPU-scaling form of the localization pipeline (SURVEY.md §2.5):
+The multi-device form of the localization pipeline (SURVEY.md §2.5):
 
 - candidate cameras shard over the ``data`` axis (the reference's 458-
   iteration Python loop, main_v1.py:274),
@@ -11,7 +11,7 @@ The TPU-scaling form of the localization pipeline (SURVEY.md §2.5):
   ``model`` and an on-device argmin — no host round-trips.
 
 The same structure scales to multi-host: the mesh simply spans hosts and
-XLA routes the all-gather over ICI/DCN.
+XLA routes the all-gather between them.
 """
 
 from __future__ import annotations

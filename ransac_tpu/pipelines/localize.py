@@ -31,7 +31,6 @@ from ransac_tpu.models import ransac as ransac_mod
 from ransac_tpu.ops import homography as hops
 from ransac_tpu.ops.linalg import inv3x3
 from ransac_tpu.ops import projection as proj
-from ransac_tpu.ops.lm import refine_homography
 from ransac_tpu.utils.config import LocalizeConfig, RansacConfig
 from ransac_tpu.utils.logging import get_logger, metrics, timed
 
@@ -99,84 +98,6 @@ def score_candidates(
     return {
         "err1": err1, "err2": err2, "H": H, "inliers": inliers,
         "counts": counts, "best": best, "best_err2": err2_sel[best],
-    }
-
-
-@partial(jax.jit, static_argnames=("cfg", "interpret"))
-def score_candidates_sweep(
-    pixels: jnp.ndarray,
-    pos3d: jnp.ndarray,
-    point_mask: jnp.ndarray,
-    cam_locs: jnp.ndarray,
-    grid_codes: jnp.ndarray,
-    cfg: LocalizeConfig,
-    interpret: bool = False,
-):
-    """score_candidates through the candidate-axis fused Pallas sweep
-    (ops.pallas.sweep_multi): the full (C candidates x exhaustive C(N,4)
-    hypotheses) hypothesize-and-verify runs as ONE kernel launch; only the
-    per-candidate winner is re-solved, refit (+LM) and reference-scored.
-
-    Semantics match ``score_candidates`` (same exhaustive sample set, same
-    MSAC selection, same refit and err1/err2 scoring).
-    """
-    from itertools import combinations as _combos
-
-    from ransac_tpu.ops.pallas.sweep_multi import (BLOCK_H,
-                                                   multi_candidate_sweep)
-
-    rcfg = cfg.ransac
-    n = pixels.shape[0]
-    combos = np.array(list(_combos(range(n), 4)), dtype=np.int32)  # [S,4]
-    S = len(combos)
-    H = -(-S // BLOCK_H) * BLOCK_H
-    idx = np.zeros((4, H), np.int32)
-    idx[:, :S] = combos.T
-    idx[:, S:] = combos.T[:, :1]  # pad with a duplicate sample
-    idx_j = jnp.asarray(idx)
-
-    pos2_all, _ = proj.east_axis_plane_projection(
-        pos3d[None, :, :], cam_locs)  # [C,N,2]
-    msac, counts, packed = multi_candidate_sweep(
-        pos2_all, pixels, point_mask, idx_j, rcfg.threshold,
-        interpret=interpret)
-
-    # Records are sublane-reduced: packed is per (candidate, lane).
-    best_h = jnp.argmin(msac, axis=1)                      # [C]
-    packed_best = jnp.take_along_axis(
-        packed, best_h[:, None], axis=1)[:, 0]             # [C]
-    sample = jnp.stack([packed_best & 15, (packed_best >> 4) & 15,
-                        (packed_best >> 8) & 15,
-                        (packed_best >> 12) & 15], axis=1)  # [C,4]
-
-    def per_candidate(pos2, samp):
-        H_best, ok = hops.dlt_homography_minimal(pos2[samp], pixels[samp])
-        errs = hops.transfer_errors(H_best, pos2, pixels)
-        thr_sq = rcfg.threshold * rcfg.threshold
-        inl = (errs * errs <= thr_sq) & point_mask.astype(bool)
-        H_ref = H_best
-        if rcfg.refit:
-            w = inl.astype(pixels.dtype)
-            H_ref = hops.dlt_homography(pos2, pixels, w)
-            if rcfg.refine_iters > 0:
-                H_ref, _ = refine_homography(
-                    H_ref, pos2, pixels, w, max_iters=rcfg.refine_iters)
-            bad = jnp.logical_not(jnp.all(jnp.isfinite(H_ref)))
-            H_ref = jnp.where(bad, H_best, H_ref)
-        err1, err2 = reference_scores(
-            H_ref, pos2, pixels, inl, point_mask, rcfg.threshold)
-        return err1, err2, H_ref, inl
-
-    err1, err2, Hm, inliers = jax.vmap(per_candidate)(pos2_all, sample)
-    gate = grid_codes >= cfg.grid_code_min
-    err1 = jnp.where(gate, err1, 0.0)
-    err2 = jnp.where(gate, err2, 0.0)
-    err2_sel = jnp.where((err2 == 0.0) | ~jnp.isfinite(err2), 1e6, err2)
-    best = jnp.argmin(err2_sel)
-    return {
-        "err1": err1, "err2": err2, "H": Hm, "inliers": inliers,
-        "counts": inliers.sum(-1), "best": best,
-        "best_err2": err2_sel[best],
     }
 
 
@@ -281,15 +202,10 @@ def localize(
     image_size: tuple[int, int],
     cfg: LocalizeConfig = LocalizeConfig(),
     seed: int = 0,
-    use_sweep: bool = False,
 ) -> LocalizationResult:
     """Full localization: candidate search + PnP pose (reference
     main_v1.py:836-930 flow, minus DEM/raycast which live in
     pipelines.raycast).
-
-    ``use_sweep=True`` routes the candidate search through the fused
-    candidate-axis Pallas kernel (identical results, ~3.5x faster E2E on
-    TPU; first compile of the kernel is slow over remote-compile links).
     """
     width, height = image_size
     key = jax.random.key(seed)
@@ -300,12 +216,7 @@ def localize(
             jnp.asarray(scene.pixels), jnp.asarray(scene.pos3d),
             jnp.asarray(scene.point_mask), jnp.asarray(scene.cam_locs),
             jnp.asarray(scene.grid_codes))
-        if use_sweep:
-            interpret = jax.devices()[0].platform != "tpu"
-            out = score_candidates_sweep(*search_args, cfg,
-                                         interpret=interpret)
-        else:
-            out = score_candidates(*search_args, cfg, k_search)
+        out = score_candidates(*search_args, cfg, k_search)
         out = jax.tree.map(np.asarray, out)
     best = int(out["best"])
     best_loc = scene.frame.uncenter(scene.cam_locs[best])

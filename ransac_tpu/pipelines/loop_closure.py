@@ -10,7 +10,7 @@ unused.  This module supplies the missing glue:
   computed from the track table with one vectorized pass (a [F, T]
   incidence matmul), no per-pair Python scans.
 - **Drift-free relative-similarity measurement** (`closure_edge`): a
-  hybrid Sim(3) estimator — rotation from fused essential-RANSAC on the
+  hybrid Sim(3) estimator — rotation from essential-RANSAC on the
   pair's own pixel matches, relative scale from robust pairwise-distance
   ratios between matched region-local 3-D points, translation from
   component medians (see `closure_edge` for the measured failure modes
@@ -90,7 +90,7 @@ def detect_closures_appearance(xy, valid, desc, min_gap: int = 16,
     (no shared track ids survive a full revisit), so closures must be
     found by APPEARANCE.  All candidate pairs (``j - i >= min_gap``,
     both subsampled by ``stride``) run as ONE vmapped mutual-NN batch on
-    device (each pair is a [K, K] MXU matmul).  Returns up to
+    device (each pair is a [K, K] matmul).  Returns up to
     ``max_pairs`` tuples ``(fi, fj, uv_i [M,2], uv_j [M,2])`` sorted by
     match count, de-duplicated by revisit region."""
     import jax
@@ -239,7 +239,7 @@ def closure_edge(tracks: dict, m, K, fi: int, fj: int,
     domain (round-5 design after two measured failures):
 
     - **Rotation** from essential-matrix RANSAC on the pair's own PIXEL
-      correspondences (the fused Pallas sweep on TPU) — sub-degree,
+      correspondences — sub-degree,
       independent of any 3-D noise.  (A point-cloud Procrustes rotation
       was tried first: map depths are ray-consistent but depth-noisy,
       capping its consensus at ~20% on real revisits.)
@@ -301,11 +301,8 @@ def closure_edge(tracks: dict, m, K, fi: int, fj: int,
     e_cfg = RansacConfig(
         threshold=(cfg.threshold / float(np.asarray(K)[0, 0])) ** 2,
         num_hypotheses=cfg.num_hypotheses, selection=cfg.selection)
-    if jax.devices()[0].platform == "tpu":
-        eres = ransac_mod.ransac_essential_sweep(x1, x2, w, e_cfg, seed)
-    else:
-        eres = ransac_mod.ransac_essential(x1, x2, w, e_cfg,
-                                           jax.random.key(seed))
+    eres = ransac_mod.ransac_essential(x1, x2, w, e_cfg,
+                                       jax.random.key(seed))
     R_e, t_e, X_e, n_e = epipolar.recover_pose(
         eres.model, x1, x2, eres.inlier_mask.astype(jnp.float32))
     if int(n_e) < 10:

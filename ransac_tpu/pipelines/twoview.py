@@ -1,7 +1,7 @@
 """Two-view reconstruction pipeline (BASELINE.json configs[2]).
 
 detect (Harris top-K) -> describe (normalized patches) -> match (mutual-NN
-on one MXU matmul) -> essential-matrix RANSAC (8-point hypothesis tensor)
+on one matmul) -> essential-matrix RANSAC (8-point hypothesis tensor)
 -> pose recovery (cheirality over the 4 decompositions) -> DLT
 triangulation.  Everything after image load is jitted with fixed shapes;
 the keyframe axis batches over the mesh ``data`` axis for multi-frame
@@ -66,15 +66,8 @@ def two_view_pipeline(img1: np.ndarray, img2: np.ndarray, K: np.ndarray,
         num_hypotheses=cfg.ransac.num_hypotheses, exhaustive=False,
         selection=cfg.ransac.selection, refit=cfg.ransac.refit,
         refine_iters=cfg.ransac.refine_iters, seed=cfg.ransac.seed)
-    engine = cfg.engine
-    if engine == "auto":
-        engine = ("sweep" if jax.devices()[0].platform == "tpu"
-                  else "stagewise")
-    if engine == "sweep":
-        res = ransac_mod.ransac_essential_sweep(x1, x2, mask, e_cfg, seed)
-    else:
-        res = ransac_mod.ransac_essential(
-            x1, x2, mask, e_cfg, jax.random.key(seed))
+    res = ransac_mod.ransac_essential(
+        x1, x2, mask, e_cfg, jax.random.key(seed))
     inl_w = res.inlier_mask.astype(jnp.float32)
     R0, t0, _, _ = epipolar.recover_pose(res.model, x1, x2, inl_w)
     # Geometric polish: LM on inlier Sampson residuals over (rvec, t).

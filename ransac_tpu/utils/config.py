@@ -125,10 +125,6 @@ class TwoViewConfig:
     nms_radius: int = 4
     patch_size: int = 8
     match_ratio: float = 0.9
-    #: Essential-RANSAC engine: "auto" uses the fused large-N Pallas
-    #: sweep on TPU and the stage-wise XLA engine elsewhere; "sweep" /
-    #: "stagewise" force a path.
-    engine: str = "auto"
     #: RANSAC threshold is in PIXELS (converted to a squared normalized
     #: Sampson bound using the focal length inside the pipeline).
     ransac: RansacConfig = field(

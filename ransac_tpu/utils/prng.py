@@ -25,12 +25,12 @@ def sample_without_replacement(
 ) -> jnp.ndarray:
     """[S, k] index tensor of uniform k-subsets of the valid points.
 
-    Branch-free, shape-static, vmappable — the TPU-native replacement for
+    Branch-free, shape-static, vmappable — a JAX replacement for
     OpenCV's sequential rejection sampler.  Two paths:
 
     - no mask and small k: sort-free Fisher-Yates index adjustment — draw
       r_j uniform over a shrinking range and shift past already-chosen
-      indices; pure VPU compares, no top_k/sort over the hypothesis tensor.
+      indices; pure elementwise compares, no top_k/sort over the hypothesis tensor.
     - masked points: top-k-of-uniforms (first k of a random permutation)
       with -inf priority on masked points (requires >= k valid points).
     """

@@ -2,8 +2,9 @@
 "frames/s at 1 chip, 1 host, N>=2 hosts; >=80% scaling efficiency").
 
 Measures the distributed candidate-search throughput (candidate-frames/s)
-across growing mesh sizes on whatever devices are attached.  On a real
-multi-chip slice the collectives ride ICI and the numbers are true scaling;
+across growing mesh sizes on whatever devices are attached.  On real
+cards the collectives cross the interconnect and the numbers are true
+scaling;
 on a single host with virtual devices the harness still validates the
 sharded program end-to-end (the numbers then measure overhead, not
 speedup — flagged in the report).

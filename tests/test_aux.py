@@ -58,13 +58,27 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_sol_profiler_reports():
     import jax
 
-    prof = SolProfiler(chip="cpu")
+    prof = SolProfiler(peaks=dict(hbm_bytes=1e11, fp32_flops=1e11,
+                                  tf32_flops=1e12))
     f = jax.jit(lambda x: x * 2.0 + 1.0)
     x = jnp.ones((1000,))
     _, rep = prof.measure("axpy", f, x, flops=2000, bytes_moved=8000, iters=3)
     assert rep.seconds > 0
     assert 0 <= rep.sol
+    assert rep.sol == max(rep.sol_compute, rep.sol_memory)
     assert "axpy" in prof.table()
+
+
+def test_device_peaks_unknown_kind_raises():
+    from ransac_tpu.utils.profiling import PEAKS, device_peaks
+
+    for kind, peaks in PEAKS.items():
+        assert device_peaks(kind) is peaks
+        assert set(peaks) == {"hbm_bytes", "fp32_flops", "tf32_flops"}
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks("cpu")
+    with pytest.raises(KeyError):
+        SolProfiler()  # the CPU backend has no published peaks
 
 
 @pytest.mark.skipif(not reference_available(), reason="reference data absent")

@@ -233,25 +233,6 @@ def test_pnp_pixel_true_threshold_anisotropic_K():
     np.testing.assert_array_equal(got, expect)
 
 
-def test_pnp_sweep_pixel_true_threshold_anisotropic_K():
-    """Same pixel-true bound through BOTH fused sweep kernels: the 16-pt
-    packed-index kernel and the large-N counter-replay kernel."""
-    X, pix, K, expect = _anisotropic_scene()
-    cfg = RansacConfig(threshold=30.0, num_hypotheses=4096)
-    # Large kernel (n=24 > 16 auto-routes).
-    res = R.ransac_pnp_sweep(
-        jnp.asarray(X, jnp.float32), jnp.asarray(pix, jnp.float32),
-        jnp.asarray(K, jnp.float32), jnp.ones(len(X)), cfg, 7,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(res.inlier_mask), expect)
-    # 16-pt kernel on the first 16 points (12 exact + 4 y-borderline).
-    res16 = R.ransac_pnp_sweep(
-        jnp.asarray(X[:16], jnp.float32), jnp.asarray(pix[:16], jnp.float32),
-        jnp.asarray(K, jnp.float32), jnp.ones(16), cfg, 7,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(res16.inlier_mask), expect[:16])
-
-
 def test_epnp_solver_matches_p3p(outlier_frac=0.3):
     """VERDICT r1 #9: EPnP wired into the engine as the 6-pt solver option
     — recovers the same planted pose and inlier set as the P3P path."""

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from ransac_tpu.models import ransac as R
-from ransac_tpu.models.ransac import _as_seed, _select_best
+from ransac_tpu.models.ransac import _select_best
 from ransac_tpu.ops import homography as hops
 from ransac_tpu.pipelines.localize import score_candidates
 from ransac_tpu.utils.config import LocalizeConfig, RansacConfig
@@ -21,29 +21,7 @@ def test_select_best_count_tiebreak_small_msac():
     assert int(_select_best(counts, msac, "msac")) == 2
 
 
-def test_as_seed_accepts_typed_key_and_int():
-    s1 = _as_seed(7)
-    assert s1 == 7
-    s2 = _as_seed(jax.random.key(3))
-    assert np.asarray(s2).shape == ()
-
-
-@pytest.mark.slow
-def test_sweep_wrapper_accepts_typed_key():
-    rng = np.random.default_rng(0)
-    H_true = np.array([[900.0, 40.0, 500.0], [-15.0, 850.0, 400.0],
-                       [1e-3, 2e-3, 1.0]])
-    src = rng.uniform(-1.5, 1.5, size=(13, 2)).astype(np.float32)
-    dst = np.array(hops.apply_h(jnp.asarray(H_true), jnp.asarray(src)))
-    dst = dst.astype(np.float32)
-    res = R.ransac_homography_sweep(
-        jnp.asarray(src), jnp.asarray(dst), jnp.ones(13),
-        RansacConfig(threshold=5.0, num_hypotheses=2048),
-        jax.random.key(0), interpret=True)
-    assert int(res.num_inliers) == 13
-
-
-def test_sweep_wrapper_respects_point_mask():
+def test_ransac_homography_respects_point_mask():
     """Hypotheses whose minimal sample touches a masked point must be
     invalidated, and masked points never appear as inliers."""
     rng = np.random.default_rng(1)
@@ -57,9 +35,10 @@ def test_sweep_wrapper_respects_point_mask():
     dst[9:] = rng.uniform(-5000, 5000, size=(4, 2))
     mask = np.ones(13, np.float32)
     mask[9:] = 0.0
-    res = R.ransac_homography_sweep(
+    res = R.ransac_homography(
         jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask),
-        RansacConfig(threshold=5.0, num_hypotheses=4096), 2, interpret=True)
+        RansacConfig(threshold=5.0, num_hypotheses=4096, exhaustive=False),
+        jax.random.key(2))
     got = np.asarray(res.inlier_mask)
     assert not got[9:].any()
     assert got[:9].sum() >= 8
@@ -91,14 +70,14 @@ def test_degenerate_candidate_cannot_hijack_argmin():
     assert np.isfinite(float(out["best_err2"]))
 
 
-def test_pivoting_sweeps_centroid_aligned_sample():
-    """A sample point sitting exactly at the sample centroid x makes the
-    first structural pivot zero; partial pivoting must still solve it."""
-    from ransac_tpu.ops.pallas.sweep import homography_ransac_sweep
+def test_minimal_dlt_centroid_aligned_sample():
+    """A sample point sitting exactly at the sample centroid x must not
+    make the minimal solve fail: every ordering of a general-position
+    4-point sample solves, and maps src onto dst."""
+    from itertools import permutations
 
-    # Exactly 4 points, x = [1, 0, 2, 1]: every sample is a permutation of
-    # this set, and any permutation whose first point has x == mean(x) = 1
-    # zeroes the first structural pivot (~half the hypothesis budget).
+    # Exactly 4 points, x = [1, 0, 2, 1]: any ordering whose first point
+    # has x == mean(x) = 1 zeroes the first pivot of a naive elimination.
     # General position otherwise (no 3 collinear).
     src = np.array([[1.0, 0.0], [0.0, 1.0], [2.0, 1.3], [1.0, 3.0]],
                    np.float32)
@@ -106,19 +85,14 @@ def test_pivoting_sweeps_centroid_aligned_sample():
                        [1e-3, -1e-3, 1.0]])
     dst = np.array(hops.apply_h(jnp.asarray(H_true), jnp.asarray(src)),
                    dtype=np.float32)
-    msac, counts, packed = homography_ransac_sweep(
-        5, jnp.asarray(src), jnp.asarray(dst), jnp.ones(len(src)),
-        2.0, n_hyp=2048, interpret=True, full_records=True)
-    msac = np.asarray(msac)
-    counts = np.asarray(counts)
-    valid = msac < 1e38
-    # The projective-frame solve must accept every permutation of a
-    # general-position sample (its validity test is collinearity of point
-    # triples, not an elimination pivot; a point at the sample centroid —
-    # which zeroed the structural pivot of the old Gaussian-elimination
-    # formulation — is not degenerate).
-    assert valid.all(), valid.mean()
-    assert counts.min() == 4
+    perms = np.array(list(permutations(range(4))))
+    Hs, ok = jax.vmap(hops.dlt_homography_minimal)(
+        jnp.asarray(src[perms]), jnp.asarray(dst[perms]))
+    assert np.asarray(ok).all()
+    mapped = np.asarray(jax.vmap(hops.apply_h, (0, None))(
+        Hs, jnp.asarray(src)))
+    np.testing.assert_allclose(mapped, np.broadcast_to(dst, mapped.shape),
+                               atol=1e-2)
 
 
 def test_fastio_stray_single_field_row(tmp_path):
@@ -138,28 +112,3 @@ def test_fastio_stray_single_field_row(tmp_path):
     assert nums.shape[0] == len(names) == 3
     assert names == ["alpha", "beta", "gamma"]
     np.testing.assert_allclose(nums[:, 1], [10, 20, 30])
-
-
-def test_large_sweep_min_independent_windows():
-    """ADVICE r2 (medium): with the default n_hyp == BLOCK_H and a pool
-    larger than one sampling WINDOW, a run must span several independent
-    windows (same-block window failures are fully correlated).  Checked
-    via eval_shape so no kernel executes."""
-    import functools
-
-    from ransac_tpu.ops.pallas import sweep_large as SL
-
-    def shapes(n, n_hyp):
-        fn = functools.partial(
-            SL.homography_ransac_sweep_large, 0, n_hyp=n_hyp,
-            interpret=True)
-        out = jax.eval_shape(
-            fn, jax.ShapeDtypeStruct((n, 2), jnp.float32),
-            jax.ShapeDtypeStruct((n, 2), jnp.float32),
-            jax.ShapeDtypeStruct((n,), jnp.float32), 75.0)
-        return out[0].shape
-    # pool > WINDOW: rounded up to MIN_WINDOWED_BLOCKS blocks
-    assert shapes(200, SL.BLOCK_H) == (
-        2, SL.MIN_WINDOWED_BLOCKS * SL.BLOCK_H // 8)
-    # pool <= WINDOW: windowing is inert, no round-up
-    assert shapes(48, SL.BLOCK_H) == (2, SL.BLOCK_H // 8)

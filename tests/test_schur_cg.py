@@ -4,7 +4,8 @@ VERDICT r1 item 4: the dense [C,P,6,3] cross tensors cannot scale; the
 slot-layout CG path must reproduce the dense results on problems both
 can solve, converge on synthetic SfM scenes, and run at shapes the dense
 path cannot allocate (scale smoke kept CPU-sized here; the full
-512-cam/200k-pt/2M-obs run is a TPU bench — see PERF.md).
+512-cam/200k-pt/2M-obs run is ``python -m ransac_tpu.ba.bench``
+on the GPU).
 """
 
 import jax

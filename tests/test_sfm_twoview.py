@@ -169,7 +169,7 @@ def test_incremental_sfm_rescue_registers_stalled_tail():
     # rescue stage this chain registers only frames 0-4 (bootstrap +
     # one frame per windowed pass) — asserted by construction above.
     m = incremental_sfm(tracks, K, list(range(n_frames)), seed=0,
-                        ba_every=6, engine="stage")
+                        ba_every=6)
     assert len(m.camera_poses) == n_frames, sorted(m.camera_poses)
     # Rescued poses must be real: similarity-aligned ATE on centers.
     def centers(poses):
@@ -206,7 +206,7 @@ def test_incremental_sfm_checkpoint_resume(tmp_path):
 
 def test_twoview_frame_fully_jittable():
     """The whole two-view frame (detect -> describe -> match -> essential
-    sweep -> pose recovery -> LM polish) composes into ONE jit program —
+    RANSAC -> pose recovery -> LM polish) composes into ONE jit program —
     the cli profile 'twoview_frame' / frames-per-second path."""
     import jax
     import jax.numpy as jnp
@@ -229,7 +229,7 @@ def test_twoview_frame_fully_jittable():
                          exhaustive=False)
 
     @jax.jit
-    def frame(i1, i2, seed):
+    def frame(i1, i2, key):
         kp1 = detect_harris(i1, 128)
         kp2 = detect_harris(i2, 128)
         d1 = patch_descriptors(i1, kp1.xy, kp1.valid)
@@ -237,14 +237,14 @@ def test_twoview_frame_fully_jittable():
         m = mutual_nn_match(d1, d2, kp1.valid, kp2.valid)
         x1 = oproj.normalize_pixels(kp1.xy[m.idx1], Kc)
         x2 = oproj.normalize_pixels(kp2.xy[m.idx2], Kc)
-        res = ransac_mod.ransac_essential_sweep(
-            x1, x2, m.valid.astype(jnp.float32), e_cfg, seed,
-            interpret=True)
+        res = ransac_mod.ransac_essential(
+            x1, x2, m.valid.astype(jnp.float32), e_cfg, key)
         inl_w = res.inlier_mask.astype(jnp.float32)
         R0, t0, _, _ = epipolar.recover_pose(res.model, x1, x2, inl_w)
         R, t, _ = epipolar.refine_relative_pose(R0, t0, x1, x2, inl_w)
         return R, t, res.num_inliers
 
-    R, t, ni = frame(jnp.asarray(img1), jnp.asarray(img2), 0)
+    R, t, ni = frame(jnp.asarray(img1), jnp.asarray(img2),
+                     jax.random.key(0))
     assert np.all(np.isfinite(np.asarray(R)))
     assert int(ni) >= 30, int(ni)

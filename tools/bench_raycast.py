@@ -1,22 +1,25 @@
-"""Chained-timing benchmark of the batched DEM ray march on TPU.
+"""Benchmark of the batched DEM ray march on the GPU.
 
-VERDICT r2 next-steps #8: the round-1 "~350k rays/s" figure was measured
-with the pipelined protocol; re-time with the dependency-chained ground
-truth (ops.pallas.roofline._time_best) and quantify the second mip level
-(pool2).  The reference marches ONE ray with a PROJ FFI call + scipy
-interpolation per 1-m step (main_v1.py:635-658).
+Times each march variant (plain chunked, coarse-to-fine mip with one and
+two levels, and mip with active-ray compaction) on synthetic scenes: each
+variant is compiled by a warm-up call, then every timed call ends in
+``jax.block_until_ready`` and the median is reported.  The reference
+marches ONE ray with a PROJ FFI call + scipy interpolation per 1-m step
+(main_v1.py:635-658).
 
 Run: python tools/bench_raycast.py [n_rays]
 """
-import functools
+import os
+import statistics
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-from ransac_tpu.ops.pallas.roofline import _time_best
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 from ransac_tpu.pipelines import raycast
 from ransac_tpu.io import dem as demio
 
@@ -66,76 +69,45 @@ def _scene(n_rays: int, kind: str, seed: int = 0):
 
 
 def bench(n_rays: int = 4096, max_steps: int = 10000,
-          kinds=("hit", "sky", "mixed")):
-  for kind in kinds:
-    print(f"--- scene: {kind} ---", flush=True)
-    dem, origins, dirs = _scene(n_rays, kind)
-    arrs = dem.device_arrays()
-    dem_pack = demio.pack_bilinear(arrs[0])
-    spacing = 30.0
-    pool = 8
-    seg_steps = min(max(int(pool * spacing / 1.0), 1), 32)
-    lookahead = 32
-    pool2 = 1
-    while pool2 * spacing < lookahead * seg_steps * 1.0:
-        pool2 *= 2
+          kinds=("hit", "sky", "mixed"), reps: int = 10):
+    from ransac_tpu.utils.device import require_gpu
 
-    for name, kw in (
-        ("march_plain_chunk64", None),
-        ("march_mip_l1", dict(pool=pool, seg_steps=seg_steps,
-                              lookahead=lookahead, pool2=0)),
-        ("march_mip_l2", dict(pool=pool, seg_steps=seg_steps,
-                              lookahead=lookahead, pool2=pool2,
-                              lookahead2=16)),
-        ("march_mip_l2_compact", dict(pool=pool, seg_steps=seg_steps,
-                                      lookahead=lookahead, pool2=pool2,
-                                      lookahead2=16, compact=True)),
-    ):
-        @functools.partial(jax.jit, static_argnames=("n_rep",))
-        def run(seed0, n_rep, kw=kw):
-            def body(_, carry):
-                s, acc = carry
-                # Perturb directions per rep (data dependency + unique
-                # input): rotation by ~1e-6 rad never changes hit counts.
-                d = dirs + (s.astype(jnp.float32) * 1e-9)
-                d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-                if kw is None:
-                    pos, hit = raycast.march_rays(
-                        origins, d, *arrs, max_steps=max_steps,
-                        step=1.0, min_hit_step=150, dem_pack=dem_pack)
-                else:
-                    kw2 = dict(kw)
-                    fn = (raycast.march_rays_mip_compact
-                          if kw2.pop("compact", False)
-                          else raycast.march_rays_mip)
-                    pos, hit = fn(
-                        origins, d, *arrs, max_steps=max_steps,
-                        step=1.0, min_hit_step=150, dem_pack=dem_pack,
-                        **kw2)
-                v = hit.sum().astype(jnp.float32)
-                return s + jnp.int32(1) + (v < -1).astype(jnp.int32), acc + v
-            _, acc = jax.lax.fori_loop(0, n_rep, body,
-                                       (seed0, jnp.float32(0.0)))
-            return acc
-
-        dt = _time_best(lambda k, r: run(jnp.int32(k), r), reps=5,
-                        small=1, large=9)
-        hit_frac = None
-        if kw is None:
-            pos, hit = raycast.march_rays(
-                origins, dirs, *arrs, max_steps=max_steps, step=1.0,
-                min_hit_step=150, dem_pack=dem_pack)
-        else:
-            kw2 = dict(kw)
-            fn = (raycast.march_rays_mip_compact
-                  if kw2.pop("compact", False) else raycast.march_rays_mip)
-            pos, hit = fn(
-                origins, dirs, *arrs, max_steps=max_steps, step=1.0,
-                min_hit_step=150, dem_pack=dem_pack, **kw2)
-        hit_frac = float(np.asarray(hit).mean())
-        print(f"{name:22s} {dt * 1e3:8.3f} ms  "
-              f"{n_rays / dt / 1e3:8.1f} k rays/s  hit={hit_frac:.2f}",
-              flush=True)
+    require_gpu()
+    for kind in kinds:
+        print(f"--- scene: {kind} ---", flush=True)
+        dem, origins, dirs = _scene(n_rays, kind)
+        arrs = dem.device_arrays()
+        dem_pack = demio.pack_bilinear(arrs[0])
+        spacing = 30.0
+        pool = 8
+        seg_steps = min(max(int(pool * spacing / 1.0), 1), 32)
+        lookahead = 32
+        pool2 = 1
+        while pool2 * spacing < lookahead * seg_steps * 1.0:
+            pool2 *= 2
+        common = dict(max_steps=max_steps, step=1.0, min_hit_step=150,
+                      dem_pack=dem_pack)
+        mip = dict(pool=pool, seg_steps=seg_steps, lookahead=lookahead)
+        for name, fn, kw in (
+            ("march_plain_chunk64", raycast.march_rays, {}),
+            ("march_mip_l1", raycast.march_rays_mip, dict(mip, pool2=0)),
+            ("march_mip_l2", raycast.march_rays_mip,
+             dict(mip, pool2=pool2, lookahead2=16)),
+            ("march_mip_l2_compact", raycast.march_rays_mip_compact,
+             dict(mip, pool2=pool2, lookahead2=16)),
+        ):
+            pos, hit = jax.block_until_ready(
+                fn(origins, dirs, *arrs, **common, **kw))
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                jax.block_until_ready(
+                    fn(origins, dirs, *arrs, **common, **kw))
+                times.append(time.perf_counter() - t0)
+            dt = statistics.median(times)
+            print(f"{name:22s} {dt * 1e3:8.3f} ms  "
+                  f"{n_rays / dt / 1e3:8.1f} k rays/s  "
+                  f"hit={float(np.asarray(hit).mean()):.2f}", flush=True)
 
 
 if __name__ == "__main__":
